@@ -1,0 +1,82 @@
+"""Carry values of the JAX package over to the port, through canonical ints.
+
+The JAX package holds a field element as W-bit limbs (12-bit int32 on the
+TPU, 24-bit int64 on the CPU backend) in Montgomery form with R = 2^(W·L);
+the port holds 8 × 32-bit limbs with R = 2^256. Nothing here imports jax:
+arrays come in as anything numpy can read (jax arrays included), each
+element is decoded to its canonical integer and re-encoded in the port's
+layout. W defaults to the JAX package's rule: 12 bits for int32 limbs, 24
+for int64.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .protocol.publickey import PublicKey
+from .protocol.range import ProofBatch
+
+
+def jax_limb_bits(arr: np.ndarray) -> int:
+    return 12 if arr.dtype == np.int32 else 24
+
+
+def _limb_ints(arr: np.ndarray, limb_bits: int) -> List[int]:
+    rows = arr.reshape(-1, arr.shape[-1])
+    out = []
+    for row in rows.tolist():
+        x = 0
+        for limb in reversed(row):
+            x = (x << limb_bits) | int(limb)
+        out.append(x)
+    return out
+
+
+def field_from_jax(arr, fops, montgomery: bool = True, limb_bits: int | None = None,
+                   device=None) -> torch.Tensor:
+    """JAX field array (..., L) → port tensor (..., 8) in the same form
+    (Montgomery or plain) over the port's FieldOps `fops`."""
+    arr = np.asarray(arr)
+    W = limb_bits or jax_limb_bits(arr)
+    vals = _limb_ints(arr, W)
+    if montgomery:
+        rinv = pow(1 << (W * arr.shape[-1]), -1, fops.p)
+        out = fops.encode([v * rinv % fops.p for v in vals], device)
+    else:
+        out = fops.encode_plain(vals, device)
+    return out.reshape(*arr.shape[:-1], fops.L)
+
+
+def points_from_jax(arr, curve, limb_bits: int | None = None, device=None) -> torch.Tensor:
+    """JAX extended points (..., 4, L) → port points (..., 4, 8)."""
+    return field_from_jax(arr, curve.fp, True, limb_bits, device)
+
+
+def publickey_from_jax(jpk, curve, device=None) -> PublicKey:
+    """A JAX PublicKey (g, h, G_vec, H_vec) → the port's PublicKey."""
+    def pts(a):
+        return points_from_jax(a, curve, device=device)
+
+    return PublicKey(curve=curve, g=pts(jpk.g), h=pts(jpk.h),
+                     G_vec=pts(jpk.G_vec), H_vec=pts(jpk.H_vec))
+
+
+def proof_batch_from_jax(jbatch, curve, device=None) -> ProofBatch:
+    """A JAX ProofBatch → the port's ProofBatch (scalars stay Montgomery)."""
+    def pts(a):
+        return points_from_jax(a, curve, device=device)
+
+    def sc(a):
+        return field_from_jax(a, curve.fn, True, device=device)
+
+    return ProofBatch(A=pts(jbatch.A), L_vec=pts(jbatch.L_vec),
+                      R_vec=pts(jbatch.R_vec), A_wip=pts(jbatch.A_wip),
+                      B=pts(jbatch.B), r_prime=sc(jbatch.r_prime),
+                      s_prime=sc(jbatch.s_prime), d_prime=sc(jbatch.d_prime))
+
+
+def commitments_from_jax(V, curve, device=None) -> torch.Tensor:
+    """JAX commitments (K, m, 4, L) or (m, 4, L) → port points."""
+    return points_from_jax(V, curve, device=device)

@@ -1,0 +1,59 @@
+// K4: fixed-base (BGMW) lookup-accumulate over precomputed window tables.
+//
+// Replaces bulletproofsplus_tpu/curves/pallas_curve.py::_fixed_lookup_call
+// (the pl.pallas_call at :371). Lanes are (window, point) pairs; lane i
+// selects entry dig[i] of tbl[:, i] and all selected entries are summed.
+// Unsigned tables hold entries 0..15; signed tables hold 1..8 with digits
+// packed as mag | neg << 8, magnitude 0 meaning the identity. The TPU kernel
+// carries one accumulator across its sequential grid; Hopper blocks run in
+// no order, so each block sums a contiguous range of lanes into one partial
+// point (strided over its threads, then a shared-memory tree) and K3 reduces
+// the partials in a second pass. Bound by the table reads: 128 bytes per
+// lane from a table too large for L2 (268 MB at 2mn = 2048), one point add
+// per lane.
+#include <cuda_runtime.h>
+
+#include "ed25519.cuh"
+
+using namespace bpp;
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__global__ void fixed_lookup_kernel(const uint32_t* __restrict__ tbl,
+                                    const int32_t* __restrict__ dig, uint32_t* __restrict__ out,
+                                    long long lanes, int is_signed, EdConsts K) {
+  __shared__ Pt sh[THREADS];
+  const long long per = (lanes + gridDim.x - 1) / gridDim.x;
+  const long long lo = (long long)blockIdx.x * per;
+  const long long hi = min(lo + per, lanes);
+  Pt acc, cur;
+  pt_identity(acc, K);
+  for (long long i = lo + threadIdx.x; i < hi; i += THREADS) {
+    const int d = dig[i];
+    if (is_signed) {
+      const int mag = d & 0xFF;
+      if (mag == 0) continue;
+      pt_load(cur, tbl + ((long long)(mag - 1) * lanes + i) * 32);
+      if ((d >> 8) & 1) pt_neg(cur, K);
+    } else {
+      pt_load(cur, tbl + ((long long)d * lanes + i) * 32);
+    }
+    pt_add(acc, acc, cur, K);
+  }
+  pt_block_reduce(sh, acc, K);
+  if (threadIdx.x == 0) pt_store(out + (long long)blockIdx.x * 32, sh[0]);
+}
+
+}  // namespace
+
+extern "C" int bpp_fixed_lookup(const void* tbl, const void* dig, void* out, long long lanes,
+                                int is_signed, int nblocks, const uint32_t* consts,
+                                void* stream) {
+  EdConsts K;
+  memcpy(&K, consts, sizeof(K));
+  fixed_lookup_kernel<<<nblocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)tbl, (const int32_t*)dig, (uint32_t*)out, lanes, is_signed, K);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,220 @@
+"""Point kernels K2–K4 (csrc/*.cu) with their plain PyTorch versions.
+
+Port of bulletproofsplus_tpu/curves/pallas_curve.py. Each wrapper takes the
+plain version for a CPU tensor and launches its kernel for a CUDA tensor
+(or raises); `<wrapper>.launches` counts kernel launches. The plain versions
+run on the curve's plain field ops, so they never launch K1.
+
+- K2 `joint_ladder_msm_grouped` ← `_joint_ladder_call` (pallas_curve.py:606,
+  pallas_call :718). Bound on Hopper by per-thread latency: one thread runs
+  a whole group's ~900 dependent point ops; see csrc/joint_ladder.cu.
+- K3 `sum_points_grouped` ← `_sum_points_call` (:475, pallas_call :553).
+  One block per group, a strided pass and a shared-memory tree in place of
+  the TPU's sequential revisiting of one output window.
+- K4 `fixed_lookup_partials` ← `_fixed_lookup_call` (:269, pallas_call
+  :371). Bound by streaming the table (128 B a lane); blocks write one
+  partial each, which K3 reduces, because Hopper blocks cannot carry an
+  accumulator across the grid the way the TPU's sequential grid does.
+
+Tables are entry-major (nent, lanes, 4, 8) for both versions, where a lane
+is a (window, point) pair, lane = window·N + point.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..fields.spec import int_to_words
+
+WINDOW = 4
+JWAYS = (1, 2, 4, 8)
+
+
+def _consts_words(curve):
+    """EdConsts of csrc/ed25519.cuh: p, -p⁻¹ mod 2³², 2d and 1 (Montgomery)."""
+    spec = curve.fp.spec
+    words = (spec.p_words + [spec.n0inv]
+             + int_to_words(curve.k2d_int * spec.r_mod_p % spec.modulus)
+             + int_to_words(spec.r_mod_p))
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def _cuda_ready(name, *pairs):
+    from .. import kernels
+
+    kernels.check_operands(name, *pairs)
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# K2: joint ladder
+# ---------------------------------------------------------------------------
+
+
+def joint_ladder_plain(curve, scalars, points, nbits: int):
+    """Plain K2. scalars (G, J, 8) plain form, points (G, J, 4, 8) → (G, 4, 8):
+    Σ_j s_j·P_j per group, by the kernel's exact operation order (tables
+    k·P_j built by repeated adds, then MSB-first windows of 4 doublings and
+    J table adds)."""
+    c = curve.plain
+    G, J = points.shape[:2]
+    nwin = -(-nbits // WINDOW)
+    tab = [c.identity_like((G, J), points.device), points]
+    for _ in range(2, 1 << WINDOW):
+        tab.append(c.add(tab[-1], points))
+    table = torch.stack(tab, dim=2)                        # (G, J, 16, 4, 8)
+    digits = c.fn.scalar_digits(scalars, nwin * WINDOW, WINDOW).long()
+    rows = torch.arange(G, device=points.device)
+    acc = c.identity_like((G,), points.device)
+    for w in range(nwin - 1, -1, -1):
+        for _ in range(WINDOW):
+            acc = c.dbl(acc)
+        for j in range(J):
+            acc = c.add(acc, table[rows, j, digits[:, j, w]])
+    return acc
+
+
+def joint_ladder_msm_grouped(curve, scalars, points, nbits: int, jway: int):
+    """K2 wrapper. scalars plain (..., N, 8), points (..., N, 4, 8) with N a
+    multiple of jway → (..., N/jway, 4, 8): consecutive groups of jway pairs
+    each give Σ_j s_j·P_j."""
+    if jway not in JWAYS:
+        raise ValueError(f"jway must be one of {JWAYS}")
+    lead = points.shape[:-3]
+    N = points.shape[-3]
+    if N % jway:
+        raise ValueError("pair count must be a multiple of jway")
+    pts = points.reshape(-1, jway, 4, 8)
+    scal = scalars.expand(*lead, N, 8).reshape(-1, jway, 8)
+    G = pts.shape[0]
+    if points.device.type == "cpu":
+        out = joint_ladder_plain(curve, scal, pts, nbits)
+    else:
+        kernels = _cuda_ready("joint_ladder", (pts, torch.int32),
+                              (scal, torch.int32))
+        pts, scal = kernels.aligned(pts), kernels.aligned(scal)
+        out = torch.empty((G, 4, 8), dtype=torch.int32, device=pts.device)
+        if G:
+            kernels.launch("bpp_joint_ladder", pts.data_ptr(), scal.data_ptr(),
+                           out.data_ptr(), G, jway, -(-nbits // WINDOW),
+                           _consts_words(curve), device=pts.device)
+            joint_ladder_msm_grouped.launches += 1
+    return out.reshape(*lead, N // jway, 4, 8)
+
+
+joint_ladder_msm_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: grouped point sum
+# ---------------------------------------------------------------------------
+
+
+def sum_points_plain(curve, points):
+    """Plain K3. (G, W, 4, 8) → (G, 4, 8): pad W to a power of two with
+    identities, then a halving tree of adds."""
+    c = curve.plain
+    G, W = points.shape[:2]
+    n2 = 1 << max(0, (W - 1).bit_length())
+    if n2 != W:
+        pad = c.identity_like((G, n2 - W), points.device)
+        points = torch.cat([points, pad], dim=1)
+    while points.shape[1] > 1:
+        half = points.shape[1] // 2
+        points = c.add(points[:, :half], points[:, half:])
+    return points[:, 0]
+
+
+def sum_points_grouped(curve, points):
+    """K3 wrapper: Σ over axis -3. points (..., W, 4, 8) → (..., 4, 8);
+    leading axes are independent groups."""
+    lead = points.shape[:-3]
+    W = points.shape[-3]
+    if W == 0:
+        return curve.identity_like(lead, points.device).clone()
+    pts = points.reshape(-1, W, 4, 8)
+    G = pts.shape[0]
+    if points.device.type == "cpu":
+        out = sum_points_plain(curve, pts)
+    else:
+        kernels = _cuda_ready("sum_points", (pts, torch.int32))
+        pts = kernels.aligned(pts)
+        out = torch.empty((G, 4, 8), dtype=torch.int32, device=pts.device)
+        if G:
+            kernels.launch("bpp_sum_points", pts.data_ptr(), out.data_ptr(),
+                           G, W, _consts_words(curve), device=pts.device)
+            sum_points_grouped.launches += 1
+    return out.reshape(*lead, 4, 8)
+
+
+sum_points_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: fixed-base lookup-accumulate
+# ---------------------------------------------------------------------------
+
+
+def select_entries(curve, table, digits, signed: bool):
+    """Each lane's table entry: (lanes, 4, 8). Signed digits are mag | neg<<8;
+    entry mag-1 holds mag·Q, the sign negates, magnitude 0 is the identity."""
+    lanes = torch.arange(table.shape[1], device=table.device)
+    d = digits.long()
+    if not signed:
+        return table[d, lanes]
+    c = curve.plain
+    mag, neg = d & 0xFF, ((d >> 8) & 1).bool()
+    sel = table[(mag.clamp(min=1) - 1), lanes]
+    sel = c.select(neg, c.neg(sel), sel)
+    return c.select(mag == 0, c.identity_like(sel.shape[:-2], sel.device), sel)
+
+
+def fixed_lookup_plain(curve, table, digits, signed: bool):
+    """Plain K4: the sum of every lane's selected entry, as one partial
+    (1, 4, 8)."""
+    return sum_points_plain(curve, select_entries(curve, table, digits, signed)[None])
+
+
+def fixed_lookup_partials(curve, table, digits, signed: bool):
+    """K4 wrapper. table (nent, lanes, 4, 8), digits (lanes,) int32 →
+    (P, 4, 8) partial points whose sum is Σ_lanes table[digit, lane]."""
+    nent, lanes = table.shape[:2]
+    if nent != (8 if signed else 16) or digits.shape != (lanes,):
+        raise ValueError("table/digit shapes do not match the table flavor")
+    if table.device.type == "cpu":
+        return fixed_lookup_plain(curve, table, digits, signed)
+    kernels = _cuda_ready("fixed_lookup", (table, torch.int32),
+                          (digits, torch.int32))
+    table, digits = kernels.aligned(table), digits.contiguous()
+    nblocks = max(1, min(1024, -(-lanes // 1024)))
+    out = torch.empty((nblocks, 4, 8), dtype=torch.int32, device=table.device)
+    kernels.launch("bpp_fixed_lookup", table.data_ptr(), digits.data_ptr(),
+                   out.data_ptr(), lanes, int(signed), nblocks,
+                   _consts_words(curve), device=table.device)
+    fixed_lookup_partials.launches += 1
+    return out
+
+
+fixed_lookup_partials.launches = 0
+
+
+def fixed_digits(curve, scalars, nbits: int, signed: bool):
+    """Plain-form scalars (N, 8) → lane digits (nwin·N,) int32 in the table's
+    lane order (window-major), packed mag | neg<<8 when signed."""
+    fn = curve.fn
+    if signed:
+        mag, neg = fn.scalar_digits_signed(scalars, nbits, WINDOW)
+        digits = mag | (neg.to(mag.dtype) << 8)
+    else:
+        nwin = -(-nbits // WINDOW)
+        digits = fn.scalar_digits(scalars, nwin * WINDOW, WINDOW)
+    return digits.t().contiguous().reshape(-1)
+
+
+def fixed_msm_kernel(curve, scalars, table, nbits: int, signed: bool):
+    """Fixed-base MSM Σ_i s_i·P_i over the table's N base points: K4 partials,
+    then K3 over the partials. scalars plain (N, 8) → (4, 8)."""
+    digits = fixed_digits(curve, scalars, nbits, signed)
+    return sum_points_grouped(curve, fixed_lookup_partials(curve, table, digits, signed))
+

@@ -1,0 +1,143 @@
+"""K1: batched Montgomery product a·b·R⁻¹ mod p over (..., 8) limb tensors.
+
+Replaces bulletproofsplus_tpu/fields/pallas_ops.py::_mont_mul_call (the
+`pl.pallas_call` at :369, wrapper `mont_mul` :386): a schoolbook convolution
+of 12-bit limbs, halving passes, a separated REDC and one carry resolve, laid
+out limb-major so the batch fills TPU lanes.
+
+On Hopper (csrc/mont_mul.cu) one thread owns one element and runs word-serial
+CIOS over 8 × 32-bit words with 32×32→64 multiplies (`fe_mul` in
+csrc/field.cuh): 64 + 64 multiply-adds, all in registers. What bounds it:
+each element moves 96 bytes (two operands, one result) for ~130 wide
+multiplies, so at the exponent stage's 262,144 elements it is bound by
+memory bandwidth and launch latency, not by the multiplier; the design reads
+and writes each word once and keeps every intermediate in registers.
+
+The plain version below computes the same function with torch integer ops:
+int64 cannot hold a 32×32-bit product, so it splits words into 16-bit
+halves, multiplies by broadcasting, and reduces by separated REDC (T + M·p)/R.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .spec import NUM_LIMBS, FieldSpec
+
+MASK16 = 0xFFFF
+MASK32 = 0xFFFFFFFF
+
+
+def u64(a: torch.Tensor) -> torch.Tensor:
+    """int32 limb patterns → their uint32 values as int64."""
+    return a.to(torch.int64) & MASK32
+
+
+def i32(u: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) → int32 bit patterns."""
+    return (u - ((u >> 31) << 32)).to(torch.int32)
+
+
+def carry32(t: torch.Tensor):
+    """int64 limbs (any sign, |t| < 2^62) → (limbs in [0, 2^32), carry out)."""
+    out = []
+    c = torch.zeros_like(t[..., 0])
+    for i in range(t.shape[-1]):
+        v = t[..., i] + c
+        out.append(v & MASK32)
+        c = v >> 32
+    return torch.stack(out, dim=-1), c
+
+
+def reduce_once(t: torch.Tensor, p64: torch.Tensor) -> torch.Tensor:
+    """Canonical int64 word limbs of a value in [0, 2p) → int32 limbs mod p."""
+    d, borrow = carry32(t - p64)
+    return i32(torch.where((borrow < 0)[..., None], t, d))
+
+
+def _halves(a: torch.Tensor) -> torch.Tensor:
+    u = u64(a)
+    return torch.stack([u & MASK16, u >> 16], dim=-1).flatten(-2)
+
+
+def _wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product of 16-bit limb vectors → (..., 2n) column sums
+    (each < n·2^32, exact in int64). The shear trick of the JAX package's
+    FieldOps._mul_wide: row i of the outer product lands shifted by i."""
+    n = a.shape[-1]
+    o = a[..., :, None] * b[..., None, :]
+    lead = o.shape[:-2]
+    o = torch.cat([o, torch.zeros_like(o)], dim=-1).reshape(*lead, 2 * n * n)
+    cols = o[..., : n * (2 * n - 1)].reshape(*lead, n, 2 * n - 1).sum(dim=-2)
+    return F.pad(cols, (0, 1))
+
+
+def _norm16(t: torch.Tensor) -> torch.Tensor:
+    """Nonnegative int64 columns → canonical 16-bit limbs, mod 2^(16·len)."""
+    while True:
+        hi = t >> 16
+        if not bool(hi[..., :-1].any()):
+            return t & MASK16
+        t = (t & MASK16) + F.pad(hi[..., :-1], (1, 0))
+
+
+def _consts(spec: FieldSpec, device) -> dict:
+    def halves_of(x):
+        return torch.tensor([(x >> (16 * i)) & MASK16 for i in range(16)],
+                            dtype=torch.int64, device=device)
+
+    return {
+        "p16": halves_of(spec.modulus),
+        "np16": halves_of(spec.nprime),
+        "p64": torch.tensor(spec.p_words, dtype=torch.int64, device=device),
+    }
+
+
+_CONSTS: dict = {}
+
+
+def _const(spec: FieldSpec, device) -> dict:
+    key = (spec.modulus, str(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = _consts(spec, device)
+    return _CONSTS[key]
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
+                   spec: FieldSpec) -> torch.Tensor:
+    """Plain PyTorch version of K1: a·b·2^-256 mod p, inputs < p."""
+    c = _const(spec, a.device)
+    t = _norm16(_wide(_halves(a), _halves(b)))                 # T = a·b
+    m = _norm16(_wide(t[..., :16], c["np16"])[..., :16])        # T·N' mod R
+    s = _norm16(t + _wide(m, c["p16"]))                         # ≡ 0 mod R
+    hi = s[..., 16:].reshape(*s.shape[:-1], NUM_LIMBS, 2)
+    return reduce_once(hi[..., 0] | (hi[..., 1] << 16), c["p64"])
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor,
+             spec: FieldSpec) -> torch.Tensor:
+    """K1 wrapper: broadcasting Montgomery product of (..., 8) int32 limbs.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (one thread per element) or raises."""
+    a, b = torch.broadcast_tensors(a, b)
+    if a.device.type == "cpu":
+        return mont_mul_plain(a, b, spec)
+    from .. import kernels
+
+    kernels.check_operands("mont_mul", (a, torch.int32), (b, torch.int32))
+    a = kernels.aligned(a)
+    b = kernels.aligned(b)
+    out = torch.empty_like(a)
+    n = a.numel() // NUM_LIMBS
+    if n:
+        mod = (ctypes.c_uint32 * 9)(*spec.p_words, spec.n0inv)
+        kernels.launch("bpp_mont_mul", a.data_ptr(), b.data_ptr(),
+                       out.data_ptr(), n, mod, device=a.device)
+        mont_mul.launches += 1
+    return out
+
+
+mont_mul.launches = 0

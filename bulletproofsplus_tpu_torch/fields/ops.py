@@ -1,0 +1,222 @@
+"""Vectorized modular arithmetic over (..., 8) limb tensors.
+
+Port of bulletproofsplus_tpu/fields/ops.py::FieldOps. Elements are in
+Montgomery form (x·2^256 mod p) unless a method says "plain"; every method
+broadcasts over leading axes and returns fully reduced limbs. `mul` is K1
+(fields/mont_mul.py): a CPU tensor takes its plain version, a CUDA tensor
+its kernel. add/sub/neg are short carry chains in torch integer ops; the
+scans the JAX package builds with `lax.associative_scan` are Hillis–Steele
+doubling loops here (log2 of the axis length in `mul` calls).
+"""
+from __future__ import annotations
+
+import functools
+from typing import List, Sequence, Union
+
+import torch
+
+from .mont_mul import carry32, i32, mont_mul, mont_mul_plain, reduce_once, u64
+from .spec import NUM_LIMBS, FieldSpec, ints_to_tensor, tensor_to_ints
+
+
+class FieldOps:
+    """Montgomery-form ops for one prime field. `plain=True` gives the same
+    ops with the plain multiply (the reference inside kernels' plain
+    versions, which must not launch K1)."""
+
+    def __init__(self, spec: FieldSpec, plain: bool = False):
+        self.spec = spec
+        self.p = spec.modulus
+        self.L = NUM_LIMBS
+        self.is_plain = plain
+        self._mul = mont_mul_plain if plain else mont_mul
+        self._dev: dict = {}
+
+    @functools.cached_property
+    def plain(self) -> "FieldOps":
+        return self if self.is_plain else FieldOps(self.spec, plain=True)
+
+    def _c(self, device) -> dict:
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = {
+                "p64": torch.tensor(self.spec.p_words, dtype=torch.int64,
+                                    device=device),
+                "one": ints_to_tensor([self.spec.r_mod_p], device)[0],
+                "one_plain": ints_to_tensor([1], device)[0],
+                "r2": ints_to_tensor([self.spec.r2_mod_p], device)[0],
+            }
+        return self._dev[key]
+
+    # -- host boundaries --------------------------------------------------
+
+    def encode(self, x: Union[int, Sequence[int]], device=None) -> torch.Tensor:
+        """Int(s) → Montgomery limbs, (8,) or (N, 8)."""
+        if isinstance(x, int):
+            return self.encode([x], device)[0]
+        return ints_to_tensor([int(v) % self.p * self.spec.r_mod_p % self.p
+                               for v in x], device)
+
+    def decode(self, t: torch.Tensor) -> Union[int, List[int]]:
+        """Montgomery limbs → int (for (8,)) or flat list of ints."""
+        vals = [v * self.spec.rinv % self.p for v in tensor_to_ints(t)]
+        return vals[0] if t.dim() == 1 else vals
+
+    def encode_plain(self, x: Union[int, Sequence[int]], device=None) -> torch.Tensor:
+        if isinstance(x, int):
+            return self.encode_plain([x], device)[0]
+        return ints_to_tensor([int(v) % self.p for v in x], device)
+
+    def decode_plain(self, t: torch.Tensor) -> Union[int, List[int]]:
+        vals = tensor_to_ints(t)
+        return vals[0] if t.dim() == 1 else vals
+
+    def one(self, device) -> torch.Tensor:
+        return self._c(device)["one"]
+
+    # -- ring ops ---------------------------------------------------------
+
+    def add(self, a, b):
+        s, _ = carry32(u64(a) + u64(b))
+        return reduce_once(s, self._c(a.device)["p64"])
+
+    def sub(self, a, b):
+        d, borrow = carry32(u64(a) - u64(b))
+        back, _ = carry32(d + self._c(a.device)["p64"])
+        return i32(torch.where((borrow < 0)[..., None], back, d))
+
+    def neg(self, a):
+        return self.sub(torch.zeros_like(a), a)
+
+    def mul(self, a, b):
+        return self._mul(a, b, self.spec)
+
+    def from_mont(self, a):
+        """Montgomery → plain form (x·R → x), e.g. for MSM scalars."""
+        return self.mul(a, self._c(a.device)["one_plain"])
+
+    def to_mont(self, a):
+        return self.mul(a, self._c(a.device)["r2"])
+
+    # -- powers and inverses ----------------------------------------------
+
+    def pow_const(self, a, e: int):
+        """a^e for a Python-int exponent: 4-bit fixed window, one 16-entry
+        table then 4 squarings + one multiply per window, MSB first."""
+        one = self.one(a.device).expand_as(a)
+        if e == 0:
+            return one.clone()
+        tab = [one, a]
+        for _ in range(2, 16):
+            tab.append(self.mul(tab[-1], a))
+        nwin = -(-e.bit_length() // 4)
+        acc = tab[(e >> (4 * (nwin - 1))) & 15]
+        for w in range(nwin - 2, -1, -1):
+            for _ in range(4):
+                acc = self.mul(acc, acc)
+            acc = self.mul(acc, tab[(e >> (4 * w)) & 15])
+        return acc
+
+    def inv(self, a):
+        """Fermat inversion a^(p-2); a must be nonzero."""
+        return self.pow_const(a, self.p - 2)
+
+    def scan_mul(self, a, dim: int, reverse: bool = False):
+        """Inclusive prefix products along `dim` (Hillis–Steele doubling)."""
+        dim = dim % a.dim()
+        if reverse:
+            return self.scan_mul(a.flip(dim), dim).flip(dim)
+        n = a.shape[dim]
+        s = 1
+        while s < n:
+            head = a.narrow(dim, 0, s)
+            tail = self.mul(a.narrow(dim, s, n - s), a.narrow(dim, 0, n - s))
+            a = torch.cat([head, tail], dim=dim)
+            s *= 2
+        return a
+
+    def batch_invert(self, a, axis: int = 0):
+        """(product of all inverses, elementwise inverses) along `axis`:
+        the Montgomery trick, one Fermat inversion per slice. Entries must
+        be nonzero."""
+        dim = axis
+        n = a.shape[dim]
+        pre = self.scan_mul(a, dim)
+        suf = self.scan_mul(a, dim, reverse=True)
+        allinv = self.inv(pre.select(dim, n - 1))
+        ones = self.one(a.device).expand_as(a.narrow(dim, 0, 1))
+        pre_excl = torch.cat([ones, pre.narrow(dim, 0, n - 1)], dim=dim)
+        suf_excl = torch.cat([suf.narrow(dim, 1, n - 1), ones], dim=dim)
+        invs = self.mul(self.mul(pre_excl, suf_excl), allinv.unsqueeze(dim))
+        return allinv, invs
+
+    def powers_type2(self, x, n: int):
+        """[x, x², ..., xⁿ] as (..., n, 8) for x of shape (..., 8)."""
+        return self.scan_mul(x.unsqueeze(-2).expand(*x.shape[:-1], n, self.L)
+                             .contiguous(), -2)
+
+    def sum(self, a, axis: int = 0):
+        """Field sum along an axis via a balanced tree of adds."""
+        a = a.movedim(axis, 0)
+        while a.shape[0] > 1:
+            half = a.shape[0] // 2
+            paired = self.add(a[:half], a[half:2 * half])
+            a = torch.cat([paired, a[2 * half:]]) if a.shape[0] % 2 else paired
+        return a[0]
+
+    # -- predicates and digits --------------------------------------------
+
+    def is_zero(self, a):
+        return (a == 0).all(dim=-1)
+
+    def select(self, mask, a, b):
+        """mask ? a : b, with mask shaped like a.shape[:-1]."""
+        return torch.where(torch.as_tensor(mask, device=a.device)[..., None], a, b)
+
+    @property
+    def order_bits(self) -> int:
+        return self.p.bit_length()
+
+    def scalar_digits(self, s, nbits: int | None = None, c: int = 4):
+        """Plain-form limbs (..., 8) → c-bit digits (..., nwin) int32,
+        LSB first. c must divide 32 so no digit straddles two words."""
+        if 32 % c:
+            raise ValueError("window must divide the limb width")
+        nbits = nbits or NUM_LIMBS * 32
+        nwin = -(-nbits // c)
+        if (nwin - 1) * c // 32 >= NUM_LIMBS:
+            raise ValueError("nbits exceeds limb capacity")
+        pos = torch.arange(nwin, device=s.device) * c
+        words = u64(s)[..., pos // 32]
+        return ((words >> (pos % 32)) & ((1 << c) - 1)).to(torch.int32)
+
+    def signed_window_count(self, nbits: int | None = None, c: int = 4) -> int:
+        """Windows of the signed c-bit decomposition: one more than
+        ceil(nbits/c) iff the top digit plus a carry can exceed 2^(c-1)."""
+        nbits = nbits or NUM_LIMBS * 32
+        nwin = -(-nbits // c)
+        top_max = ((1 << nbits) - 1) >> (c * (nwin - 1))
+        return nwin + (1 if top_max + 1 > (1 << (c - 1)) else 0)
+
+    def scalar_digits_signed(self, s, nbits: int | None = None, c: int = 4):
+        """Plain-form limbs → balanced signed digits: (magnitudes (..., nw1)
+        in [0, 2^(c-1)], negative-sign bools), LSB first. Digit j becomes
+        d_j + carry_in − 2^c·carry_out with carry_out = (d_j + carry_in >
+        2^(c-1)); a sequential carry over the windows."""
+        nbits = nbits or NUM_LIMBS * 32
+        nwin = -(-nbits // c)
+        nw1 = self.signed_window_count(nbits, c)
+        half = 1 << (c - 1)
+        d = self.scalar_digits(s, nwin * c, c)
+        if nw1 > nwin:
+            d = torch.cat([d, torch.zeros_like(d[..., :1])], dim=-1)
+        mags, negs = [], []
+        carry = torch.zeros_like(d[..., 0])
+        for j in range(nw1):
+            t = d[..., j] + carry
+            neg = t > half
+            mags.append(torch.where(neg, (1 << c) - t, t))
+            negs.append(neg)
+            carry = neg.to(t.dtype)
+        return torch.stack(mags, dim=-1), torch.stack(negs, dim=-1)
+

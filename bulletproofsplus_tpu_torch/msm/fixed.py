@@ -1,0 +1,88 @@
+"""Fixed-base MSM via precomputed window tables (BGMW).
+
+Port of bulletproofsplus_tpu/msm/fixed.py. For fixed base points P_i the
+doublings of a ladder move into a one-time table
+
+    T[k, j, i] = k · (2^(4j) · P_i)     k ∈ [0, 16), j ∈ [0, nwin)
+
+after which Σ_i s_i·P_i = Σ_i Σ_j T[d_ij, j, i], a lookup and one add per
+(window, point) lane (K4, then K3 over K4's partials). Signed tables hold
+entries k ∈ [1, 8] (half the memory) for balanced digits; negative digits
+negate the selected point and digit 0 selects the identity.
+
+The table is entry-major (nent, nwin·N, 4, 8), which is also the kernel's
+layout, so no separate kernel layout exists. At 2mn = 2048 edwards25519
+points the unsigned table holds 16·64·2048 points of 128 bytes: 268 MB.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..curves.cuda_curve import WINDOW, fixed_msm_kernel
+
+POINT_BYTES = 4 * 8 * 4
+DEFAULT_MAX_BYTES = 7 * 1024**3
+
+
+def table_bytes(curve, n_points: int, nbits: int | None = None,
+                signed: bool = False) -> int:
+    """Device bytes of the window table for n_points fixed bases."""
+    nbits = nbits or curve.fn.order_bits
+    if signed:
+        nent, nwin = 1 << (WINDOW - 1), curve.fn.signed_window_count(nbits, WINDOW)
+    else:
+        nent, nwin = 1 << WINDOW, -(-nbits // WINDOW)
+    return nent * nwin * n_points * POINT_BYTES
+
+
+def fixed_base_mode(curve, n_points: int, max_bytes: int = DEFAULT_MAX_BYTES):
+    """"unsigned" when its table fits max_bytes (one select fewer per
+    lookup), else "signed" when that fits, else None (no table fits; the
+    JAX package then runs the generator lanes on the ladder, which the
+    port does not, since edwards25519 tables fit up to 2mn ≈ 110,000)."""
+    if table_bytes(curve, n_points) <= max_bytes:
+        return "unsigned"
+    if table_bytes(curve, n_points, signed=True) <= max_bytes:
+        return "signed"
+    return None
+
+
+def _window_chain(curve, points, nwin: int):
+    """Q[j] = 2^(4j)·P: (nwin, N, 4, 8)."""
+    chain = [points]
+    for _ in range(nwin - 1):
+        q = chain[-1]
+        for _ in range(WINDOW):
+            q = curve.dbl(q)
+        chain.append(q)
+    return torch.stack(chain)
+
+
+def precompute_tables(curve, points, nbits: int | None = None):
+    """Unsigned table (16, nwin·N, 4, 8) for base points (N, 4, 8):
+    T[0] = identity, T[k] = T[k-1] + Q (the JAX package's scan order)."""
+    nbits = nbits or curve.fn.order_bits
+    Q = _window_chain(curve, points, -(-nbits // WINDOW)).flatten(0, 1)
+    T = [curve.identity_like(Q.shape[:-2], Q.device)]
+    for _ in range(1, 1 << WINDOW):
+        T.append(curve.add(T[-1], Q))
+    return torch.stack(T)
+
+
+def precompute_tables_signed(curve, points, nbits: int | None = None):
+    """Signed table (8, nwin_s·N, 4, 8): entry k-1 = k·Q for k ∈ [1, 8]."""
+    nbits = nbits or curve.fn.order_bits
+    nwin = curve.fn.signed_window_count(nbits, WINDOW)
+    Q = _window_chain(curve, points, nwin).flatten(0, 1)
+    T = [Q]
+    for _ in range(1, 1 << (WINDOW - 1)):
+        T.append(curve.add(T[-1], Q))
+    return torch.stack(T)
+
+
+def fixed_msm(curve, scalars, table, nbits: int | None = None):
+    """Σ_i scalars[i]·P_i over the table's base points; scalars plain (N, 8).
+    The flavor follows the table's entry count (8 = signed)."""
+    nbits = nbits or curve.fn.order_bits
+    return fixed_msm_kernel(curve, scalars, table, nbits,
+                            signed=table.shape[0] == 1 << (WINDOW - 1))

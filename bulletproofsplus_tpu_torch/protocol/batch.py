@@ -1,0 +1,100 @@
+"""Batch verification: K proofs → one random-linear-combination MSM.
+
+Port of bulletproofsplus_tpu/protocol/batch.py, homogeneous path
+(`_batch_verify_fused_jit` :34-87, `_batch_verify_fused` :147-194,
+`batch_verify` :197-257). Every proof's verification is "MSM == identity";
+weighting proof k by a random 128-bit w_k and summing keeps one MSM whose
+identity implies every term's, with overwhelming probability. The proofs
+share the pk generators, so their G/H/g/h exponents merge by field adds:
+the 2mn generator lanes run on fixed-base tables (K4 + K3) and only the
+K·(2·log2(mn)+m+3)+2 proof-specific lanes run the joint ladder (K2 + K3).
+"""
+from __future__ import annotations
+
+import secrets
+
+import torch
+from torch.profiler import record_function
+
+from ..errors import VerificationError
+from ..msm import msm
+from ..msm.fixed import fixed_msm
+from .range import (
+    ProofBatch,
+    replay_batch,
+    stack_commitments,
+    vinputs_multiple_batched,
+    vinputs_single_batched,
+)
+
+
+def verify_stacked(curve, pk, n: int, m: int, batch: ProofBatch, V_all,
+                   challenges, W) -> bool:
+    """Whether Σ_k w_k·(proof k's verification MSM) is the identity.
+
+    batch: K proofs on pk's device; V_all (K, m, 4, 8); challenges the
+    (ys, zs, ess, efs) of replay_batch; W (K, 8) Montgomery weights."""
+    fn = curve.fn
+    dev = pk.device
+    mn = n * m
+    ys, zs, ess, efs = challenges
+    with record_function("bpp::exponents"):
+        args = (fn.encode(ys, dev), fn.encode(zs, dev),
+                fn.encode([e for es in ess for e in es], dev).reshape(len(ys), -1, fn.L),
+                fn.encode(efs, dev), batch.r_prime, batch.s_prime, batch.d_prime)
+        if m == 1:
+            uniq_s, G_exp, H_exp, g_exp, h_exp = vinputs_single_batched(fn, n, *args)
+            head = [batch.B, batch.A_wip, batch.A]   # pairs [1, e, e²]
+        else:
+            uniq_s, G_exp, H_exp, g_exp, h_exp = vinputs_multiple_batched(fn, n, m, *args)
+            head = [batch.A, batch.A_wip, batch.B]   # pairs [1, e⁻¹, e⁻²]
+    with record_function("bpp::rlc_merge"):
+        Wg = W[:, None, :]
+        gen_s = fn.from_mont(torch.cat([fn.sum(fn.mul(G_exp, Wg), axis=0),
+                                        fn.sum(fn.mul(H_exp, Wg), axis=0)]))
+        var_s = fn.from_mont(torch.cat([fn.mul(uniq_s, Wg).reshape(-1, fn.L),
+                                        fn.sum(fn.mul(g_exp, W), axis=0)[None],
+                                        fn.sum(fn.mul(h_exp, W), axis=0)[None]]))
+        uniq_p = torch.cat([h[:, None] for h in head]
+                           + [batch.L_vec, batch.R_vec, V_all], dim=1)
+        var_p = torch.cat([uniq_p.reshape(-1, 4, fn.L), pk.g[None], pk.h[None]])
+    with record_function("bpp::variable_msm"):
+        var = msm(curve, var_s, var_p)
+    with record_function("bpp::fixed_msm"):
+        gen = fixed_msm(curve, gen_s, pk.fixed_tables(mn))
+    with record_function("bpp::identity_check"):
+        return bool(curve.is_identity(curve.add(var, gen)))
+
+
+def batch_verify(curve, pk, n: int, proofs, commitment_lists,
+                 transcripts=None, rng=None) -> None:
+    """Verify K proofs over one pk in a single MSM; raises VerificationError.
+
+    proofs: a ProofBatch or a sequence of RangeProof; commitment_lists: a
+    (K, m, 4, 8) tensor or K equal-length lists of (4, 8) points, all on
+    pk's device. transcripts: K DeterministicTranscript(m) (the only mode
+    ported so far; there is no default). rng: callable returning the 128-bit
+    RLC weights; the default draws them from `secrets`, and must stay
+    unpredictable to the prover."""
+    if len(proofs) != len(commitment_lists):
+        raise VerificationError("proof/commitment count mismatch")
+    K = len(proofs)
+    if K == 0:
+        return
+    if transcripts is None:
+        raise NotImplementedError(
+            "no default transcript: pass K DeterministicTranscript(m) (the "
+            "sound fs256 mode is not ported yet)")
+    if len(transcripts) != K:
+        raise ValueError("need one transcript per proof")
+    draw = rng or (lambda: secrets.randbits(128))
+    batch = proofs if isinstance(proofs, ProofBatch) else ProofBatch.from_proofs(proofs)
+    V_all = stack_commitments(commitment_lists)
+    m = V_all.shape[1]
+    if n * m != 1 << batch.rounds or pk.length < n * m:
+        raise VerificationError()
+    challenges = replay_batch(curve, n, m, transcripts)
+    W = curve.fn.encode([draw() for _ in range(K)], pk.device)
+    if not verify_stacked(curve, pk.prefix(n * m), n, m, batch, V_all,
+                          challenges, W):
+        raise VerificationError("batch verification failed")

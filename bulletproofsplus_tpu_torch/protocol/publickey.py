@@ -1,0 +1,77 @@
+"""Public key (generator set) on a device, with cached fixed-base tables.
+
+Port of bulletproofsplus_tpu/protocol/publickey.py:17-122: g = base point,
+h = 2g, G_i = 3(i+1)g, H_i = 5(i+1)g (the reference's small multiples,
+publickey.rs:23-39, deliberately insecure and kept for parity). The
+multiples are computed on the host in Python ints (running sums, one shared
+inversion) and uploaded; `fixed_tables` builds the window tables of
+msm/fixed.py on the device once per (pk, mn).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..curves import host
+
+
+@dataclasses.dataclass
+class PublicKey:
+    """Generator set of one curve backend: tensors (4, 8) and (length, 4, 8)."""
+
+    curve: object
+    g: torch.Tensor
+    h: torch.Tensor
+    G_vec: torch.Tensor
+    H_vec: torch.Tensor
+    _fb_tables: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
+
+    @classmethod
+    def new(cls, curve, length: int, device=None) -> "PublicKey":
+        """Small-multiple generators (publickey.rs:23-39)."""
+        g = host.to_ext(host.BASE)
+        three, five = host.ext_mul(g, 3), host.ext_mul(g, 5)
+        G, H = [three], [five]
+        for _ in range(length - 1):
+            G.append(host.ext_add(G[-1], three))
+            H.append(host.ext_add(H[-1], five))
+        pts = host.to_affine([g, host.ext_add(g, g)] + G[:length] + H[:length])
+        enc = curve.encode_points(pts, device)
+        return cls(curve=curve, g=enc[0], h=enc[1], G_vec=enc[2:2 + length],
+                   H_vec=enc[2 + length:])
+
+    @property
+    def length(self) -> int:
+        return self.G_vec.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.g.device
+
+    def prefix(self, mn: int) -> "PublicKey":
+        """The first mn generators (the reference accepts longer sets and
+        uses their prefix, errors.rs:37-41); shares this key's table cache."""
+        if self.length == mn:
+            return self
+        return PublicKey(self.curve, self.g, self.h, self.G_vec[:mn],
+                         self.H_vec[:mn], self._fb_tables)
+
+    def fixed_tables(self, mn: int):
+        """Window tables over [G_vec[:mn] ‖ H_vec[:mn]], built on first use:
+        unsigned when it fits the budget of msm.fixed.fixed_base_mode, else
+        the half-size signed table."""
+        t = self._fb_tables.get(mn)
+        if t is None:
+            from ..msm.fixed import (
+                fixed_base_mode,
+                precompute_tables,
+                precompute_tables_signed,
+            )
+
+            signed = fixed_base_mode(self.curve, 2 * mn) != "unsigned"
+            build = precompute_tables_signed if signed else precompute_tables
+            t = build(self.curve, torch.cat([self.G_vec[:mn], self.H_vec[:mn]]))
+            self._fb_tables[mn] = t
+        return t

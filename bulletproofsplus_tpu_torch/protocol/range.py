@@ -1,0 +1,287 @@
+"""Range-proof containers, challenge replay and the verifier's exponent vectors.
+
+Port of the verify side of bulletproofsplus_tpu/protocol/range.py:
+`RangeProof`, `ProofBatch`, `_replay_challenges` (:380-394, batched as
+`replay_batch` :662-715), the exponent programs `_vinputs_multiple_batched`
+(:1017-1114) and `_vinputs_single_prog` (:1117-1192, here with the same
+leading K axis), and `verify` (:209-235, :502-542). Every input and output
+of the exponent programs carries a leading K axis and every field product
+runs on whole (K, ·) tensors, so K1 sees one launch per operation.
+
+Single `verify` is the K = 1 case of batch verification with weight 1: the
+same exponent program, the same MSM (protocol/batch.py::verify_stacked).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from ..errors import (
+    InvalidAggregation,
+    InvalidBitsize,
+    InvalidGeneratorsLength,
+    ProofError,
+    VerificationError,
+)
+from .wip import WipProof
+
+
+@dataclasses.dataclass
+class RangeProof:
+    """A (the bit commitment) + the WIP argument (range/mod.rs:25-28)."""
+
+    A: torch.Tensor   # (4, 8)
+    proof: WipProof
+
+
+@dataclasses.dataclass
+class ProofBatch:
+    """K homogeneous range proofs (same n, m) as stacked tensors."""
+
+    A: torch.Tensor        # (K, 4, 8)
+    L_vec: torch.Tensor    # (K, rounds, 4, 8)
+    R_vec: torch.Tensor    # (K, rounds, 4, 8)
+    A_wip: torch.Tensor    # (K, 4, 8)
+    B: torch.Tensor        # (K, 4, 8)
+    r_prime: torch.Tensor  # (K, 8) Montgomery
+    s_prime: torch.Tensor  # (K, 8)
+    d_prime: torch.Tensor  # (K, 8)
+
+    @property
+    def rounds(self) -> int:
+        return self.L_vec.shape[1]
+
+    def __len__(self) -> int:
+        return self.A.shape[0]
+
+    def take(self, index) -> "ProofBatch":
+        """The sub-batch at `index` (a slice or an index tensor/list)."""
+        if not isinstance(index, slice):
+            index = torch.as_tensor(index, dtype=torch.long, device=self.A.device)
+        return ProofBatch(**{f.name: getattr(self, f.name)[index]
+                             for f in dataclasses.fields(self)})
+
+    def __getitem__(self, i: int) -> RangeProof:
+        return RangeProof(A=self.A[i], proof=WipProof(
+            L_vec=self.L_vec[i], R_vec=self.R_vec[i], A=self.A_wip[i],
+            B=self.B[i], r_prime=self.r_prime[i], s_prime=self.s_prime[i],
+            d_prime=self.d_prime[i]))
+
+    @classmethod
+    def from_proofs(cls, proofs: Sequence[RangeProof]) -> "ProofBatch":
+        return cls(
+            A=torch.stack([p.A for p in proofs]),
+            L_vec=torch.stack([p.proof.L_vec for p in proofs]),
+            R_vec=torch.stack([p.proof.R_vec for p in proofs]),
+            A_wip=torch.stack([p.proof.A for p in proofs]),
+            B=torch.stack([p.proof.B for p in proofs]),
+            r_prime=torch.stack([p.proof.r_prime for p in proofs]),
+            s_prime=torch.stack([p.proof.s_prime for p in proofs]),
+            d_prime=torch.stack([p.proof.d_prime for p in proofs]),
+        )
+
+
+def validate(pk, n: int, m: int) -> None:
+    """The reference's argument checks (errors.rs:27, :31-35, :37-41)."""
+    if n not in (8, 16, 32, 64):
+        raise InvalidBitsize()
+    if m < 1 or (m & (m - 1)) != 0:
+        raise InvalidAggregation(m)
+    if pk.length < n * m:
+        raise InvalidGeneratorsLength()
+
+
+def stack_commitments(commitment_lists) -> torch.Tensor:
+    """(K, m, 4, 8) commitments from a tensor (passed through) or K lists."""
+    if isinstance(commitment_lists, torch.Tensor):
+        return commitment_lists
+    if any(len(V) != len(commitment_lists[0]) for V in commitment_lists):
+        raise NotImplementedError(
+            "batches mixing aggregation sizes are not ported yet")
+    return torch.stack([torch.stack(list(V)) for V in commitment_lists])
+
+
+def replay_batch(curve, n: int, m: int, transcripts):
+    """Host Fiat-Shamir replay of K proofs: (ys, zs, ess, efs) int lists;
+    VerificationError on a zero challenge (range.py:392). Only transcripts
+    whose challenges are known ahead are ported, so no point is decoded."""
+    fn = curve.fn
+    logn = (n * m).bit_length() - 1
+    if not all(getattr(tr, "challenges_known_ahead", False) for tr in transcripts):
+        raise NotImplementedError(
+            "only DeterministicTranscript replay is ported; the fs256 device "
+            "replay comes with a later slice")
+    ys, zs, ess, efs = [], [], [], []
+    for tr in transcripts:
+        y, z = tr.challenge_yz(curve, [None] * m, None)
+        es = [tr.round_challenge(curve, None, None) % fn.p for _ in range(logn)]
+        e = tr.final_challenge(curve, None, None) % fn.p
+        if any(c == 0 for c in es) or e == 0 or y % fn.p == 0 or z % fn.p == 0:
+            raise VerificationError()
+        ys.append(y)
+        zs.append(z)
+        ess.append(es)
+        efs.append(e)
+    return ys, zs, ess, efs
+
+
+def _s_vec(fn, allinv, challenges_sqr, width: int):
+    """s_i = Π e_j⁻¹ · Π_{bits b of i} e²_{logn-1-b} (wip:372-380) as logn
+    masked multiplies over (K, width)."""
+    logn = challenges_sqr.shape[1]
+    K = allinv.shape[0]
+    idx = torch.arange(width, device=allinv.device)
+    s_vec = allinv[:, None].expand(K, width, fn.L)
+    for j in range(logn):
+        s_vec = fn.select(((idx >> j) & 1).bool(),
+                          fn.mul(s_vec, challenges_sqr[:, None, logn - 1 - j]), s_vec)
+    return s_vec
+
+
+def _prod(fn, xs):
+    """Π over axis 1 of (K, k, 8)."""
+    acc = xs[:, 0]
+    for j in range(1, xs.shape[1]):
+        acc = fn.mul(acc, xs[:, j])
+    return acc
+
+
+def vinputs_multiple_batched(fn, n: int, m: int, y_m, z_m, challenges, e,
+                             r_prime, s_prime, d_prime):
+    """Aggregated (m > 1) exponent vectors of K proofs, the e⁻² form.
+    Inputs (K, 8) Montgomery, challenges (K, logn, 8). Returns
+    (unique scalars (K, 3+2·logn+m, 8) paired with [A, A_wip, B, L, R, V],
+    G_exp (K, mn, 8), H_exp (K, mn, 8), g_exp (K, 8), h_exp (K, 8))."""
+    K = y_m.shape[0]
+    dev = y_m.device
+    mn = n * m
+    logn = mn.bit_length() - 1
+    idx = torch.arange(mn, device=dev)
+    sum_2 = fn.encode((pow(2, n, fn.p) - 1) % fn.p, dev)
+    two_pows = fn.encode([pow(2, i, fn.p) for i in range(n)], dev)
+
+    minus_z = fn.neg(z_m)
+    z_sqr = fn.mul(z_m, z_m)
+    power_of_y_all = fn.powers_type2(y_m, mn + 1)          # (K, mn+1, 8)
+    y_mn1 = power_of_y_all[:, mn]
+    power_of_y = power_of_y_all[:, :mn]
+    power_of_y_rev = power_of_y.flip(1)
+    power_of_z = fn.powers_type2(z_sqr, m)                 # (K, m, 8)
+    concat_z_and_2 = fn.mul(two_pows[idx % n].expand(K, mn, fn.L),
+                            power_of_z[:, idx // n])
+
+    # one Fermat chain inverts the round challenges, e and y together
+    _, invs = fn.batch_invert(
+        torch.cat([challenges, e[:, None], y_m[:, None]], dim=1), axis=1)
+    challenges_inv = invs[:, :logn]
+    e_inv = invs[:, logn]
+    y_inv = invs[:, logn + 1]
+    allinv = _prod(fn, challenges_inv)
+    challenges_sqr = fn.mul(challenges, challenges)
+    challenges_inv_sqr = fn.mul(challenges_inv, challenges_inv)
+    s_vec = _s_vec(fn, allinv, challenges_sqr, mn)
+    s_prime_vec = s_vec.flip(1)
+
+    e_sqr_inv = fn.mul(e_inv, e_inv)
+    r_prime_e_inv_y = fn.mul(fn.mul(r_prime, e_inv), y_m)
+    s_prime_e_inv = fn.mul(s_prime, e_inv)
+
+    pow_y_inv = fn.powers_type2(y_inv, mn)
+    G_exp = fn.sub(minus_z[:, None].expand(K, mn, fn.L),
+                   fn.mul(fn.mul(s_vec, pow_y_inv), r_prime_e_inv_y[:, None]))
+    H_exp = fn.add(fn.neg(fn.mul(s_prime_e_inv[:, None], s_prime_vec)),
+                   fn.add(fn.mul(concat_z_and_2, power_of_y_rev), z_m[:, None]))
+
+    sum_y = fn.sum(power_of_y, axis=1)
+    sum_z = fn.sum(power_of_z, axis=1)
+    g_exp = fn.add(
+        fn.neg(fn.mul(fn.mul(fn.mul(r_prime, s_prime), y_m), e_sqr_inv)),
+        fn.sub(fn.mul(sum_y, fn.sub(z_m, z_sqr)),
+               fn.mul(fn.mul(fn.mul(y_mn1, z_m), sum_2), sum_z)))
+    h_exp = fn.neg(fn.mul(d_prime, e_sqr_inv))
+    V_exp = fn.mul(power_of_z, y_mn1[:, None])
+
+    unique = torch.cat([fn.one(dev).expand(K, 1, fn.L), e_inv[:, None],
+                        e_sqr_inv[:, None], challenges_sqr, challenges_inv_sqr,
+                        V_exp], dim=1)
+    return unique, G_exp, H_exp, g_exp, h_exp
+
+
+def vinputs_single_batched(fn, n: int, y_m, z_m, challenges, e, r_prime,
+                           s_prime, d_prime):
+    """Single-proof (m = 1) exponent vectors of K proofs, the e²-multiplied
+    form (range/mod.rs:189-238, wip:238-328). Same signature and outputs as
+    vinputs_multiple_batched; unique scalars pair with [B, A_wip, A, L, R, V]."""
+    K = y_m.shape[0]
+    dev = y_m.device
+    logn = n.bit_length() - 1
+    two_pows = fn.encode([pow(2, i, fn.p) for i in range(n)], dev)
+    sum2 = fn.encode((pow(2, n, fn.p) - 1) % fn.p, dev)
+
+    power_of_y_all = fn.powers_type2(y_m, n + 1)
+    power_of_y = power_of_y_all[:, :n]
+    power_of_y_rev = power_of_y.flip(1)
+    V_exp_comm = power_of_y_all[:, n]                       # y^{n+1}
+    z_sqr = fn.mul(z_m, z_m)
+    G_exp_comm = fn.neg(z_m)[:, None].expand(K, n, fn.L)
+    H_exp_comm = fn.add(fn.mul(two_pows, power_of_y_rev), z_m[:, None])
+    g_exp_comm = fn.sub(fn.mul(fn.sum(power_of_y, axis=1), fn.sub(z_m, z_sqr)),
+                        fn.mul(fn.mul(sum2, V_exp_comm), z_m))
+
+    _, invs = fn.batch_invert(torch.cat([challenges, y_m[:, None]], dim=1), axis=1)
+    challenges_inv = invs[:, :logn]
+    y_inv = invs[:, logn]
+    allinv = _prod(fn, challenges_inv)
+    challenges_sqr = fn.mul(challenges, challenges)
+    challenges_inv_sqr = fn.mul(challenges_inv, challenges_inv)
+    s_vec = _s_vec(fn, allinv, challenges_sqr, n)
+    s_prime_vec = s_vec.flip(1)
+
+    e_sqr = fn.mul(e, e)
+    r_prime_e_y = fn.mul(fn.mul(r_prime, e), y_m)
+    s_prime_e = fn.mul(s_prime, e)
+    Ls_exp = fn.mul(challenges_sqr, e_sqr[:, None])
+    Rs_exp = fn.mul(challenges_inv_sqr, e_sqr[:, None])
+
+    pow_y_inv = fn.powers_type2(y_inv, n)
+    G_exp = fn.sub(fn.mul(G_exp_comm, e_sqr[:, None]),
+                   fn.mul(fn.mul(s_vec, pow_y_inv), r_prime_e_y[:, None]))
+    H_exp = fn.sub(fn.mul(H_exp_comm, e_sqr[:, None]),
+                   fn.mul(s_prime_vec, s_prime_e[:, None]))
+    g_exp = fn.add(fn.neg(fn.mul(fn.mul(r_prime, y_m), s_prime)),
+                   fn.mul(g_exp_comm, e_sqr))
+    h_exp = fn.neg(d_prime)
+    V_exp = fn.mul(V_exp_comm, e_sqr)
+
+    unique = torch.cat([fn.one(dev).expand(K, 1, fn.L), e[:, None], e_sqr[:, None],
+                        Ls_exp, Rs_exp, V_exp[:, None]], dim=1)
+    return unique, G_exp, H_exp, g_exp, h_exp
+
+
+def verify(curve, proof: RangeProof, pk, n: int, commitment_vec,
+           transcript=None) -> None:
+    """Raises VerificationError unless the proof verifies (range/mod.rs:57-78).
+    transcript: a DeterministicTranscript(m), the only mode ported so far."""
+    from .batch import verify_stacked
+
+    V = (commitment_vec if isinstance(commitment_vec, torch.Tensor)
+         else torch.stack(list(commitment_vec)))
+    m = V.shape[0]
+    try:
+        validate(pk, n, m)
+    except ProofError as exc:
+        raise VerificationError(str(exc) or "invalid arguments")
+    if transcript is None:
+        raise NotImplementedError(
+            "no default transcript: pass DeterministicTranscript(m) (the "
+            "sound fs256 mode is not ported yet)")
+    batch = ProofBatch.from_proofs([proof])
+    if n * m != 1 << batch.rounds:
+        raise VerificationError()
+    challenges = replay_batch(curve, n, m, [transcript])
+    W = curve.fn.one(V.device)[None]
+    if not verify_stacked(curve, pk.prefix(n * m), n, m, batch, V[None],
+                          challenges, W):
+        raise VerificationError()

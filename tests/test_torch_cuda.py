@@ -1,0 +1,110 @@
+"""Kernels K1–K4 against their plain versions on an NVIDIA card.
+
+Marked `cuda`: every test skips where torch sees no CUDA device (it decides
+inside the test, so every worker collects the same tests). This file
+imports neither jax nor the JAX package, so it runs on a machine that has
+only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+"""
+import os
+import random
+
+import pytest
+import torch
+
+import bulletproofsplus_tpu_torch as bt
+from bulletproofsplus_tpu_torch import serialize
+from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+from bulletproofsplus_tpu_torch.curves import host
+from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
+from bulletproofsplus_tpu_torch.msm.fixed import precompute_tables, precompute_tables_signed
+
+pytestmark = pytest.mark.cuda
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "bulletproofsplus_tpu_torch", "data", "ed25519_n64_m16_det.bin")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda:0")
+
+
+def points(count, seed, device):
+    rnd = random.Random(seed)
+    B = host.to_ext(host.BASE)
+    step = host.ext_mul(B, rnd.randrange(1, 1 << 64))
+    cur = host.ext_mul(B, rnd.randrange(1, 1 << 64))
+    out = []
+    for _ in range(count):
+        out.append(cur)
+        cur = host.ext_add(cur, step)
+    return bt.curve_ops().encode_points(host.to_affine(out), device)
+
+
+@pytest.mark.parametrize("which", ["fp", "fn"])
+def test_k1_kernel_matches_plain(dev, which):
+    f = getattr(bt.curve_ops(), which)
+    rnd = random.Random(1)
+    xs = [rnd.randrange(f.p) for _ in range(997)] + [0, 1, f.p - 1]
+    ys = [rnd.randrange(f.p) for _ in range(997)] + [f.p - 1, f.p - 1, f.p - 1]
+    a, b = f.encode(xs, dev), f.encode(ys, dev)
+    before = mont_mul.launches
+    got = mont_mul(a, b, f.spec)
+    assert mont_mul.launches == before + 1
+    assert torch.equal(got, mont_mul_plain(a, b, f.spec))
+    assert f.decode(got) == [x * y % f.p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("jway", [1, 2, 4, 8])
+def test_k2_kernel_matches_plain(dev, jway):
+    c = bt.curve_ops()
+    G = 37
+    rnd = random.Random(jway)
+    P = points(G * jway, jway, dev)
+    s = c.fn.encode_plain([rnd.randrange(c.fn.p) for _ in range(G * jway)], dev)
+    got = cc.joint_ladder_msm_grouped(c, s, P, 253, jway)
+    want = cc.joint_ladder_plain(c, s.reshape(G, jway, 8), P.reshape(G, jway, 4, 8), 253)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("W", [1, 300, 1000])
+def test_k3_kernel_matches_plain(dev, W):
+    c = bt.curve_ops()
+    P = points(3 * W, W, dev).reshape(3, W, 4, 8)
+    assert c.decode_points(cc.sum_points_grouped(c, P)) == c.decode_points(
+        cc.sum_points_plain(c, P))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_k4_kernel_matches_plain(dev, signed):
+    c = bt.curve_ops()
+    rnd = random.Random(4)
+    P = points(24, 5, dev)
+    table = (precompute_tables_signed if signed else precompute_tables)(c, P)
+    s = c.fn.encode_plain([rnd.randrange(c.fn.p) for _ in range(24)], dev)
+    dig = cc.fixed_digits(c, s, 253, signed)
+    parts = cc.fixed_lookup_partials(c, table, dig, signed)
+    got = cc.sum_points_plain(c, parts[None])
+    assert c.decode_points(got) == c.decode_points(
+        cc.fixed_lookup_plain(c, table, dig, signed))
+
+
+def test_batch_verify_on_card(dev):
+    c = bt.curve_ops()
+    with open(FIXTURE, "rb") as f:
+        n, m, rows = serialize.read_fixture(f.read())
+    rows = rows[:4]
+    batch = bt.ProofBatch.from_proofs(
+        [serialize.proof_from_bytes(c, wire, dev) for _, wire in rows])
+    V = torch.stack([c.encode_points(serialize.points_from_bytes(cm), dev)
+                     for cm, _ in rows])
+    pk = bt.PublicKey.new(c, n * m, dev)
+    trs = [bt.DeterministicTranscript(m)] * len(rows)
+    bt.batch_verify(c, pk, n, batch, V, trs)
+    batch.s_prime = batch.s_prime.clone()
+    batch.s_prime[2] = c.fn.add(batch.s_prime[2], c.fn.one(dev))
+    with pytest.raises(bt.VerificationError):
+        bt.batch_verify(c, pk, n, batch, V, trs)
