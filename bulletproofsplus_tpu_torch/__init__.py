@@ -1,17 +1,21 @@
 """bulletproofsplus_tpu_torch — the PyTorch/CUDA port of bulletproofsplus_tpu.
 
-This slice ports batch range-proof verification on edwards25519: field and
-curve arithmetic on (..., 8) tensors of 32-bit limbs, the joint-ladder and
-fixed-base MSMs, the exponent-vector programs and the random-linear-
-combination batch verifier. Four hand-written Hopper kernels (csrc/) carry
-it: K1 Montgomery multiply, K2 joint ladder, K3 grouped point sum, K4
-fixed-base lookup. On CPU tensors every kernel wrapper runs its plain
-PyTorch version; on CUDA tensors it launches the kernel. The package never
+The port covers batch range-proof proving and verification on
+edwards25519 in the deterministic transcript mode: field and curve
+arithmetic on (..., 8) tensors of 32-bit limbs, the joint-ladder and
+fixed-base MSMs, the K-batched prover (bit commitment, setup, the whole WIP
+fold), the exponent-vector programs and the random-linear-combination batch
+verifier. Five hand-written Hopper kernels (csrc/) carry it: K1 Montgomery
+multiply, K2 joint ladder, K3 grouped point sum, K4 fixed-base lookup, K5
+per-lane ladder. Entry points place tensors on the CUDA card unless the
+caller passes a device; on CPU tensors every kernel wrapper runs its plain
+PyTorch version, on CUDA tensors it launches the kernel. The package never
 imports jax or bulletproofsplus_tpu.
 
 Public API:
-    curve_ops, PublicKey, RangeProof, ProofBatch, batch_verify, verify,
-    DeterministicTranscript, VerificationError, FormatError
+    curve_ops, PublicKey, RangeProver, RangeProof, ProofBatch, prove,
+    batch_prove, verify, batch_verify, DeterministicTranscript,
+    DeterministicRng, SystemRng, VerificationError, FormatError
 """
 from .curves import curve_ops
 from .errors import FormatError, ProofError, VerificationError
@@ -19,24 +23,32 @@ from .protocol import (
     ProofBatch,
     PublicKey,
     RangeProof,
+    RangeProver,
     WipProof,
+    batch_prove,
     batch_verify,
+    prove,
     stack_commitments,
     verify,
 )
-from .transcript import DeterministicTranscript
+from .transcript import DeterministicRng, DeterministicTranscript, SystemRng
 
 __all__ = [
+    "DeterministicRng",
     "DeterministicTranscript",
     "FormatError",
     "ProofBatch",
     "ProofError",
     "PublicKey",
     "RangeProof",
+    "RangeProver",
+    "SystemRng",
     "VerificationError",
     "WipProof",
+    "batch_prove",
     "batch_verify",
     "curve_ops",
+    "prove",
     "stack_commitments",
     "verify",
 ]

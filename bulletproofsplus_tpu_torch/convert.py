@@ -6,7 +6,8 @@ the port holds 8 × 32-bit limbs with R = 2^256. Nothing here imports jax:
 arrays come in as anything numpy can read (jax arrays included), each
 element is decoded to its canonical integer and re-encoded in the port's
 layout. W defaults to the JAX package's rule: 12 bits for int32 limbs, 24
-for int64.
+for int64. Every helper places its result on `device`, by default the CUDA
+card (pass "cpu" for the CPU).
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from typing import List
 import numpy as np
 import torch
 
+from .device import entry_device
 from .protocol.publickey import PublicKey
-from .protocol.range import ProofBatch
+from .protocol.range import ProofBatch, RangeProver
 
 
 def jax_limb_bits(arr: np.ndarray) -> int:
@@ -38,6 +40,7 @@ def field_from_jax(arr, fops, montgomery: bool = True, limb_bits: int | None = N
                    device=None) -> torch.Tensor:
     """JAX field array (..., L) → port tensor (..., 8) in the same form
     (Montgomery or plain) over the port's FieldOps `fops`."""
+    device = entry_device(device)
     arr = np.asarray(arr)
     W = limb_bits or jax_limb_bits(arr)
     vals = _limb_ints(arr, W)
@@ -56,6 +59,8 @@ def points_from_jax(arr, curve, limb_bits: int | None = None, device=None) -> to
 
 def publickey_from_jax(jpk, curve, device=None) -> PublicKey:
     """A JAX PublicKey (g, h, G_vec, H_vec) → the port's PublicKey."""
+    device = entry_device(device)
+
     def pts(a):
         return points_from_jax(a, curve, device=device)
 
@@ -65,6 +70,8 @@ def publickey_from_jax(jpk, curve, device=None) -> PublicKey:
 
 def proof_batch_from_jax(jbatch, curve, device=None) -> ProofBatch:
     """A JAX ProofBatch → the port's ProofBatch (scalars stay Montgomery)."""
+    device = entry_device(device)
+
     def pts(a):
         return points_from_jax(a, curve, device=device)
 
@@ -80,3 +87,12 @@ def proof_batch_from_jax(jbatch, curve, device=None) -> ProofBatch:
 def commitments_from_jax(V, curve, device=None) -> torch.Tensor:
     """JAX commitments (K, m, 4, L) or (m, 4, L) → port points."""
     return points_from_jax(V, curve, device=device)
+
+
+def range_prover_from_jax(jprover, curve, device=None) -> RangeProver:
+    """A JAX RangeProver (witness ints and commitments) → the port's."""
+    V = points_from_jax(np.stack([np.asarray(c) for c in jprover.commitment_vec]),
+                        curve, device=device)
+    return RangeProver(v_vec=[int(v) for v in jprover.v_vec],
+                       gamma_vec=[int(g) for g in jprover.gamma_vec],
+                       commitment_vec=list(V.unbind(0)))

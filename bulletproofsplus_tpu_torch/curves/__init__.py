@@ -1,4 +1,4 @@
-"""edwards25519 point arithmetic and the point kernels K2–K4."""
+"""edwards25519 point arithmetic and the point kernels K2–K5."""
 from .instances import CURVE_NAMES, curve_ops
 
 __all__ = ["CURVE_NAMES", "curve_ops"]

@@ -1,4 +1,4 @@
-"""Point kernels K2–K4 (csrc/*.cu) with their plain PyTorch versions.
+"""Point kernels K2–K5 (csrc/*.cu) with their plain PyTorch versions.
 
 Port of bulletproofsplus_tpu/curves/pallas_curve.py. Each wrapper takes the
 plain version for a CPU tensor and launches its kernel for a CUDA tensor
@@ -15,6 +15,11 @@ run on the curve's plain field ops, so they never launch K1.
   :371). Bound by streaming the table (128 B a lane); blocks write one
   partial each, which K3 reduces, because Hopper blocks cannot carry an
   accumulator across the grid the way the TPU's sequential grid does.
+- K5 `ladder_scalar_mul` ← `_ladder_call` (:146, pallas_call :253). One
+  thread per lane with its 16-entry table in shared memory; on the prover's
+  256 lanes it is bound by the latency of one lane's ~334 dependent point
+  ops; see csrc/ladder.cu. It computes K2 at J = 1 in the same order, but
+  keeps its own entry point and launch count.
 
 Tables are entry-major (nent, lanes, 4, 8) for both versions, where a lane
 is a (window, point) pair, lane = window·N + point.
@@ -218,3 +223,39 @@ def fixed_msm_kernel(curve, scalars, table, nbits: int, signed: bool):
     digits = fixed_digits(curve, scalars, nbits, signed)
     return sum_points_grouped(curve, fixed_lookup_partials(curve, table, digits, signed))
 
+
+# ---------------------------------------------------------------------------
+# K5: per-lane whole ladder
+# ---------------------------------------------------------------------------
+
+
+def ladder_plain(curve, scalars, points, nbits: int):
+    """Plain K5. scalars (N, 8) plain form, points (N, 4, 8) → (N, 4, 8):
+    s_i·P_i by the kernel's operation order, which is K2's at J = 1."""
+    return joint_ladder_plain(curve, scalars[:, None], points[:, None], nbits)
+
+
+def ladder_scalar_mul(curve, scalars, points, nbits: int):
+    """K5 wrapper: s·P per lane. scalars plain (..., 8), points (..., 4, 8);
+    leading axes broadcast and are flattened into lanes."""
+    if not 1 <= nbits <= 256:
+        raise ValueError("nbits must be in [1, 256]")
+    lead = torch.broadcast_shapes(scalars.shape[:-1], points.shape[:-2])
+    pts = points.expand(*lead, 4, 8).reshape(-1, 4, 8)
+    scal = scalars.expand(*lead, 8).reshape(-1, 8)
+    N = pts.shape[0]
+    if points.device.type == "cpu":
+        out = ladder_plain(curve, scal, pts, nbits)
+    else:
+        kernels = _cuda_ready("ladder", (pts, torch.int32), (scal, torch.int32))
+        pts, scal = kernels.aligned(pts), kernels.aligned(scal)
+        out = torch.empty((N, 4, 8), dtype=torch.int32, device=pts.device)
+        if N:
+            kernels.launch("bpp_ladder", pts.data_ptr(), scal.data_ptr(),
+                           out.data_ptr(), N, -(-nbits // WINDOW),
+                           _consts_words(curve), device=pts.device)
+            ladder_scalar_mul.launches += 1
+    return out.reshape(*lead, 4, 8)
+
+
+ladder_scalar_mul.launches = 0

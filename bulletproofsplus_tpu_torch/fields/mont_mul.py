@@ -40,20 +40,48 @@ def i32(u: torch.Tensor) -> torch.Tensor:
     return (u - ((u >> 31) << 32)).to(torch.int32)
 
 
-def carry32(t: torch.Tensor):
-    """int64 limbs (any sign, |t| < 2^62) → (limbs in [0, 2^32), carry out)."""
-    out = []
-    c = torch.zeros_like(t[..., 0])
-    for i in range(t.shape[-1]):
-        v = t[..., i] + c
-        out.append(v & MASK32)
-        c = v >> 32
-    return torch.stack(out, dim=-1), c
+def _positions(n: int, device):
+    """(i, 2^i) for column i < n as int64 tensors on `device`, cached."""
+    key = (n, str(device))
+    if key not in _POSITIONS:
+        idx = torch.arange(n, device=device)
+        _POSITIONS[key] = (idx, torch.ones_like(idx) << idx)
+    return _POSITIONS[key]
+
+
+_POSITIONS: dict = {}
+
+
+def _resolve(gen: torch.Tensor, passes: torch.Tensor):
+    """Carries of one column-wise addition, all at once, without a scan.
+    Column i emits a carry (gen[i]) or passes on the one it receives
+    (passes[i]; never both). With those as the bits of G and P, these are
+    the carries of the binary sum (P | G) + G, whose bits generate exactly
+    where G does and propagate exactly where P does. Returns (0/1 carry into
+    each column, carry out of the top)."""
+    n = gen.shape[-1]
+    idx, w = _positions(n, gen.device)
+    G = (gen.to(torch.int64) * w).sum(-1)
+    PG = (passes.to(torch.int64) * w).sum(-1) | G
+    c = (PG + G) ^ PG ^ G                       # bit i: the carry into column i
+    return (c[..., None] >> idx) & 1, (c >> n) & 1
+
+
+def carry32(t: torch.Tensor, borrow: bool = False):
+    """int64 limbs, each the sum (0 ≤ t < 2^33) or, with borrow=True, the
+    difference (−2^32 < t < 2^32) of two 32-bit words → (limbs in
+    [0, 2^32), carry out: 1 or 0 for a sum, −1 or 0 for a difference)."""
+    gen = t >> 32
+    low = t & MASK32
+    c_in, c_out = _resolve(gen != 0, (gen == 0) & (low == (0 if borrow else MASK32)))
+    if borrow:
+        c_in, c_out = -c_in, -c_out
+    return (low + c_in) & MASK32, c_out
 
 
 def reduce_once(t: torch.Tensor, p64: torch.Tensor) -> torch.Tensor:
     """Canonical int64 word limbs of a value in [0, 2p) → int32 limbs mod p."""
-    d, borrow = carry32(t - p64)
+    d, borrow = carry32(t - p64, borrow=True)
     return i32(torch.where((borrow < 0)[..., None], t, d))
 
 
@@ -74,13 +102,15 @@ def _wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return F.pad(cols, (0, 1))
 
 
-def _norm16(t: torch.Tensor) -> torch.Tensor:
-    """Nonnegative int64 columns → canonical 16-bit limbs, mod 2^(16·len)."""
-    while True:
-        hi = t >> 16
-        if not bool(hi[..., :-1].any()):
-            return t & MASK16
-        t = (t & MASK16) + F.pad(hi[..., :-1], (1, 0))
+def _norm16(t: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """Nonnegative int64 columns → canonical 16-bit limbs, mod 2^(16·len).
+    Columns below 2^40 need three carry-save passes and below 2^60 four to
+    leave every column at most 2^16; the remaining carries are then 0 or 1
+    and resolve at once (`_resolve`)."""
+    for _ in range(passes):
+        t = (t & MASK16) + F.pad((t >> 16)[..., :-1], (1, 0))
+    c_in, _ = _resolve(t >> 16, t == MASK16)
+    return (t + c_in) & MASK16
 
 
 def _consts(spec: FieldSpec, device) -> dict:
@@ -109,9 +139,11 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
                    spec: FieldSpec) -> torch.Tensor:
     """Plain PyTorch version of K1: a·b·2^-256 mod p, inputs < p."""
     c = _const(spec, a.device)
-    t = _norm16(_wide(_halves(a), _halves(b)))                 # T = a·b
-    m = _norm16(_wide(t[..., :16], c["np16"])[..., :16])        # T·N' mod R
-    s = _norm16(t + _wide(m, c["p16"]))                         # ≡ 0 mod R
+    # T = a·b stays in unnormalized columns (< 2^36): its low 16 columns are
+    # still ≡ T mod R, and T + m·p is normalized once at the end
+    t = _wide(_halves(a), _halves(b))
+    m = _norm16(_wide(t[..., :16], c["np16"])[..., :16], passes=4)  # T·N' mod R
+    s = _norm16(t + _wide(m, c["p16"]))                             # ≡ 0 mod R
     hi = s[..., 16:].reshape(*s.shape[:-1], NUM_LIMBS, 2)
     return reduce_once(hi[..., 0] | (hi[..., 1] << 16), c["p64"])
 

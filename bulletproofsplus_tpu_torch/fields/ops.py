@@ -81,7 +81,7 @@ class FieldOps:
         return reduce_once(s, self._c(a.device)["p64"])
 
     def sub(self, a, b):
-        d, borrow = carry32(u64(a) - u64(b))
+        d, borrow = carry32(u64(a) - u64(b), borrow=True)
         back, _ = carry32(d + self._c(a.device)["p64"])
         return i32(torch.where((borrow < 0)[..., None], back, d))
 

@@ -24,7 +24,8 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("mont_mul.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu")
+SOURCES = ("mont_mul.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu",
+           "ladder.cu")
 HEADERS = ("field.cuh", "ed25519.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -36,6 +37,7 @@ SIGNATURES = {
     "bpp_joint_ladder": [_P, _P, _P, _LL, _I, _I, _U32P],
     "bpp_sum_points": [_P, _P, _LL, _LL, _U32P],
     "bpp_fixed_lookup": [_P, _P, _P, _LL, _I, _I, _U32P],
+    "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
 }
 
 _LIB = None

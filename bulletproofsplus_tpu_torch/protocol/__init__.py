@@ -1,8 +1,9 @@
-"""The verifier's protocol layer: containers, exponent vectors, batch verify."""
+"""The protocol layer: containers, the batch prover, exponent vectors, batch verify."""
 from .batch import batch_verify
+from .batchprove import batch_prove
 from .publickey import PublicKey
-from .range import ProofBatch, RangeProof, stack_commitments, verify
+from .range import ProofBatch, RangeProof, RangeProver, prove, stack_commitments, verify
 from .wip import WipProof
 
-__all__ = ["ProofBatch", "PublicKey", "RangeProof", "WipProof", "batch_verify",
-           "stack_commitments", "verify"]
+__all__ = ["ProofBatch", "PublicKey", "RangeProof", "RangeProver", "WipProof",
+           "batch_prove", "batch_verify", "prove", "stack_commitments", "verify"]

@@ -5,7 +5,9 @@ h = 2g, G_i = 3(i+1)g, H_i = 5(i+1)g (the reference's small multiples,
 publickey.rs:23-39, deliberately insecure and kept for parity). The
 multiples are computed on the host in Python ints (running sums, one shared
 inversion) and uploaded; `fixed_tables` builds the window tables of
-msm/fixed.py on the device once per (pk, mn).
+msm/fixed.py on the device once per (pk, mn). `commitment` (:124-138) is
+the committer's host step, as in the JAX package: v·g + γ·h in Python ints,
+encoded onto the key's device.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 import torch
 
 from ..curves import host
+from ..device import entry_device
 
 
 @dataclasses.dataclass
@@ -27,10 +30,13 @@ class PublicKey:
     H_vec: torch.Tensor
     _fb_tables: dict = dataclasses.field(default_factory=dict, repr=False,
                                          compare=False)
+    _gh_ext: tuple = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def new(cls, curve, length: int, device=None) -> "PublicKey":
-        """Small-multiple generators (publickey.rs:23-39)."""
+        """Small-multiple generators (publickey.rs:23-39), on `device`
+        (default: the CUDA card; pass "cpu" for the CPU)."""
+        device = entry_device(device)
         g = host.to_ext(host.BASE)
         three, five = host.ext_mul(g, 3), host.ext_mul(g, 5)
         G, H = [three], [five]
@@ -56,7 +62,17 @@ class PublicKey:
         if self.length == mn:
             return self
         return PublicKey(self.curve, self.g, self.h, self.G_vec[:mn],
-                         self.H_vec[:mn], self._fb_tables)
+                         self.H_vec[:mn], self._fb_tables, self._gh_ext)
+
+    def commitment(self, v: int, gamma: int) -> torch.Tensor:
+        """Pedersen commitment v·g + γ·h (publickey.rs:50-52): a (4, 8) point
+        on the key's device, computed on the host."""
+        if self._gh_ext is None:
+            g, h = self.curve.decode_points(torch.stack([self.g, self.h]))
+            self._gh_ext = (host.to_ext(g), host.to_ext(h))
+        g, h = self._gh_ext
+        V = host.ext_add(host.ext_mul(g, v), host.ext_mul(h, gamma))
+        return self.curve.encode_points(host.to_affine([V]), self.device)[0]
 
     def fixed_tables(self, mn: int):
         """Window tables over [G_vec[:mn] ‖ H_vec[:mn]], built on first use:

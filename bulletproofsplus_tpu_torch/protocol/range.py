@@ -1,23 +1,31 @@
-"""Range-proof containers, challenge replay and the verifier's exponent vectors.
+"""Range-proof containers, the prover's setup and the verifier's exponents.
 
-Port of the verify side of bulletproofsplus_tpu/protocol/range.py:
-`RangeProof`, `ProofBatch`, `_replay_challenges` (:380-394, batched as
-`replay_batch` :662-715), the exponent programs `_vinputs_multiple_batched`
-(:1017-1114) and `_vinputs_single_prog` (:1117-1192, here with the same
-leading K axis), and `verify` (:209-235, :502-542). Every input and output
-of the exponent programs carries a leading K axis and every field product
-runs on whole (K, ·) tensors, so K1 sees one launch per operation.
+Port of bulletproofsplus_tpu/protocol/range.py. Verify side: `RangeProof`,
+`ProofBatch`, `_replay_challenges` (:380-394, batched as `replay_batch`
+:662-715), the exponent programs `_vinputs_multiple_batched` (:1017-1114)
+and `_vinputs_single_prog` (:1117-1192, here with the same leading K axis),
+and `verify` (:209-235, :502-542). Prove side: `RangeProver` (:133-146),
+`_bit_decompose` (:149-153), the bit commitment `_bit_commitment_batch_prog`
+(:254-282), the setup programs `_prove_setup_multiple_prog` (:857-894) and
+`_prove_setup_single_prog` (:310-341) with the leading K axis the JAX
+package adds by vmap (batchprove.py:59-72), and `prove` (:178-206). Every
+input and output of these programs carries a leading K axis and every
+field product runs on whole (K, ·) tensors, so K1 sees one launch per
+operation.
 
-Single `verify` is the K = 1 case of batch verification with weight 1: the
-same exponent program, the same MSM (protocol/batch.py::verify_stacked).
+Single `verify` and `prove` are the K = 1 cases of batch verification
+(protocol/batch.py::verify_stacked) and batch proving
+(protocol/batchprove.py::batch_prove).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import List, Sequence
 
+import numpy as np
 import torch
 
+from ..curves.cuda_curve import ladder_scalar_mul, sum_points_grouped
 from ..errors import (
     InvalidAggregation,
     InvalidBitsize,
@@ -81,6 +89,31 @@ class ProofBatch:
             s_prime=torch.stack([p.proof.s_prime for p in proofs]),
             d_prime=torch.stack([p.proof.d_prime for p in proofs]),
         )
+
+
+@dataclasses.dataclass
+class RangeProver:
+    """Witness container (range/prover.rs:13-42): values, blinds and their
+    commitments, (4, 8) points on the key's device."""
+
+    v_vec: List[int] = dataclasses.field(default_factory=list)
+    gamma_vec: List[int] = dataclasses.field(default_factory=list)
+    commitment_vec: List[torch.Tensor] = dataclasses.field(default_factory=list)
+
+    def commit(self, pk, v: int, gamma: int) -> torch.Tensor:
+        V = pk.commitment(v, gamma)
+        self.v_vec.append(v)
+        self.gamma_vec.append(gamma)
+        self.commitment_vec.append(V)
+        return V
+
+
+def bit_decompose(v: Sequence[int], n: int, m: int) -> np.ndarray:
+    """v_bits[i] = bit (i % n) of v[i // n] (range/mod.rs:263-277), (n·m,)."""
+    mask = (1 << n) - 1
+    vals = np.array([int(x) & mask for x in v], dtype=np.uint64)
+    bits = (vals[:, None] >> np.arange(n, dtype=np.uint64)) & np.uint64(1)
+    return bits.reshape(n * m).astype(bool)
 
 
 def validate(pk, n: int, m: int) -> None:
@@ -258,6 +291,75 @@ def vinputs_single_batched(fn, n: int, y_m, z_m, challenges, e, r_prime,
     unique = torch.cat([fn.one(dev).expand(K, 1, fn.L), e[:, None], e_sqr[:, None],
                         Ls_exp, Rs_exp, V_exp[:, None]], dim=1)
     return unique, G_exp, H_exp, g_exp, h_exp
+
+
+def bit_commitment_batched(curve, alpha_plain, bits, G_vec, H_vec, h):
+    """K bit commitments A_k = h·α_k + Σ_i (bits[k, i] ? G_i : −H_i)
+    (range/mod.rs:96-106, :259-277). alpha_plain (K, 8) plain form, bits
+    (K, mn) bool → (K, 4, 8): h·α_k by K5 over K lanes, then one K3 launch
+    over the (K, mn + 1) points."""
+    K = bits.shape[0]
+    h_alpha = ladder_scalar_mul(curve, alpha_plain, h.expand(K, 4, 8),
+                                curve.fn.order_bits)
+    chosen = curve.select(bits, G_vec, curve.neg(H_vec))     # (K, mn, 4, 8)
+    return sum_points_grouped(curve, torch.cat([h_alpha[:, None], chosen], dim=1))
+
+
+def _a_b_vectors(fn, bits, z_m, H_exp):
+    """a = bits ? 1 − z : −z and b = bits ? H_exp : H_exp − 1, (K, width, 8)."""
+    one = fn.one(z_m.device)
+    shape = H_exp.shape
+    a_vec = fn.select(bits, fn.sub(one, z_m)[:, None].expand(shape),
+                      fn.neg(z_m)[:, None].expand(shape))
+    b_vec = fn.select(bits, H_exp, fn.sub(H_exp, one))
+    return a_vec, b_vec
+
+
+def prove_setup_multiple_batched(fn, n: int, m: int, y_m, z_m, bits, gamma_m,
+                                 alpha_m):
+    """Everything between (y, z) and the WIP fold of K aggregated proofs
+    (range/mod.rs:283-376). y, z, α (K, 8) Montgomery, bits (K, mn) bool,
+    γ (K, m, 8) → (a_vec, b_vec, power_of_y (K, mn, 8), α̂ (K, 8)). The
+    reference's Â is dead prover work and is not computed (range.py:314)."""
+    K = y_m.shape[0]
+    dev = y_m.device
+    mn = n * m
+    idx = torch.arange(mn, device=dev)
+    two_pows = fn.encode([pow(2, i, fn.p) for i in range(n)], dev)
+    power_of_y = fn.powers_type2(y_m, mn)                    # (K, mn, 8)
+    power_of_z = fn.powers_type2(fn.mul(z_m, z_m), m)        # z², z⁴, ...
+    # d[j·n + i] = 2^i · z^{2(j+1)}   (range/mod.rs:288-291)
+    d = fn.mul(two_pows[idx % n].expand(K, mn, fn.L), power_of_z[:, idx // n])
+    H_exp = fn.add(fn.mul(d, power_of_y.flip(1)), z_m[:, None])
+    y_mn1 = fn.mul(power_of_y[:, mn - 1], y_m)                # y^{mn+1}
+    a_vec, b_vec = _a_b_vectors(fn, bits, z_m, H_exp)
+    pz_gamma_sum = fn.sum(fn.mul(power_of_z, gamma_m), axis=1)
+    alpha_hat = fn.add(alpha_m, fn.mul(pz_gamma_sum, y_mn1))
+    return a_vec, b_vec, power_of_y, alpha_hat
+
+
+def prove_setup_single_batched(fn, n: int, y_m, z_m, bits, gamma_m, alpha_m):
+    """The m = 1 setup of K proofs (range/mod.rs:112-184); γ (K, 8), other
+    arguments and outputs as prove_setup_multiple_batched."""
+    two_pows = fn.encode([pow(2, i, fn.p) for i in range(n)], y_m.device)
+    power_of_y = fn.powers_type2(y_m, n)                     # (K, n, 8)
+    H_exp = fn.add(fn.mul(two_pows, power_of_y.flip(1)), z_m[:, None])
+    V_exp = fn.mul(power_of_y[:, n - 1], y_m)                 # y^{n+1}
+    a_vec, b_vec = _a_b_vectors(fn, bits, z_m, H_exp)
+    alpha_hat = fn.add(alpha_m, fn.mul(gamma_m, V_exp))
+    return a_vec, b_vec, power_of_y, alpha_hat
+
+
+def prove(curve, pk, n: int, prover: RangeProver, transcript=None,
+          rng=None) -> RangeProof:
+    """One range proof (range/mod.rs:31-55), the K = 1 case of batch_prove.
+    transcript: DeterministicTranscript(m), the only mode ported so far
+    (there is no default); rng: blinding source, by default SystemRng."""
+    from .batchprove import batch_prove
+
+    return batch_prove(curve, pk, n, [prover],
+                       None if transcript is None else [transcript],
+                       None if rng is None else [rng])[0]
 
 
 def verify(curve, proof: RangeProof, pk, n: int, commitment_vec,

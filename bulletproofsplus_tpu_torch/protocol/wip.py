@@ -1,15 +1,26 @@
-"""The weighted-inner-product proof container.
+"""The weighted-inner-product proof container and its K-batched prover.
 
-Port of bulletproofsplus_tpu/protocol/wip.py:29-44 (the reference struct,
-wip:24-33). Its verification scalars are computed inside the batched
-exponent programs of protocol/range.py; the WIP prover comes with the
-prover slice.
+Port of bulletproofsplus_tpu/protocol/wip.py: the reference struct
+(:29-44, wip:24-33), `_joint_rows_msm` (:233-269) and the known-challenge
+fold of K proofs `_wip_prove_known_kbatched_prog` (:928-1066). Its
+verification scalars are computed inside the batched exponent programs of
+protocol/range.py.
+
+Every round's tensors carry the leading K axis, so each kernel sees one
+launch per round for the whole batch: L and R of every proof are one
+(K, 2, W) MSM (K2 at J = 4, then K3), and the generator folds are K2 at
+J = 2 over (K, 2·half) pairs. `power_of_y` is not folded, as in the
+reference; G and H stay an `expand` of the key's generators until the first
+fold.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.profiler import record_function
+
+from ..curves.cuda_curve import joint_ladder_msm_grouped, sum_points_grouped
 
 
 @dataclasses.dataclass
@@ -27,3 +38,110 @@ class WipProof:
     @property
     def rounds(self) -> int:
         return self.L_vec.shape[0]
+
+
+def joint_rows_msm(curve, scalars_plain, points, nbits: int):
+    """Σ over axis -3 of (..., W) pairs by the J-way joint ladder (K2) and
+    the grouped sum (K3): J = 4 if W % 4 == 0 or W ≥ 8, else 2; W pads to a
+    multiple of J with zero scalars and identity points."""
+    lead = points.shape[:-3]
+    W = points.shape[-3]
+    J = 4 if W % 4 == 0 or W >= 8 else 2
+    Wp = -(-W // J) * J
+    if Wp != W:
+        scalars_plain = torch.cat(
+            [scalars_plain, scalars_plain.new_zeros(*lead, Wp - W, 8)], dim=-2)
+        points = torch.cat(
+            [points, curve.identity_like((*lead, Wp - W), points.device)], dim=-3)
+    return sum_points_grouped(
+        curve, joint_ladder_msm_grouped(curve, scalars_plain, points, nbits, J))
+
+
+def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
+                            es_m, dLs_m, dRs_m, r_m, s_m, delta_m, eta_m, ef_m):
+    """The whole fold of K proofs whose challenges and blinds are known
+    ahead (wip:36-227). a, b, power_of_y (K, n, 8) and α (K, 8) Montgomery;
+    G, H (n, 4, 8), g, h (4, 8) the key's generators; es/dLs/dRs
+    (K, log2 n, 8); r, s, δ, η, e_final (K, 8). Returns (L_vec, R_vec
+    (K, log2 n, 4, 8), A, B (K, 4, 8), r', s', δ' (K, 8))."""
+    fn = curve.fn
+    K, n = a.shape[:2]
+    logn = n.bit_length() - 1
+    nbits = fn.order_bits
+    hs = [n >> (r + 1) for r in range(logn)]
+    ynhats = power_of_y[:, [h_ - 1 for h_ in hs]]              # (K, logn, 8)
+    # one Fermat chain inverts the round challenges and the ŷ together
+    _, invs = fn.batch_invert(torch.cat([es_m, ynhats], dim=1), axis=1)
+    es_inv, ynhat_invs = invs[:, :logn], invs[:, logn:]
+    es_sqr = fn.mul(es_m, es_m)
+    es_inv_sqr = fn.mul(es_inv, es_inv)
+
+    Gk, Hk = G.expand(K, *G.shape), H.expand(K, *H.shape)
+    gk, hk = g.expand(K, 4, 8), h.expand(K, 4, 8)
+    Ls, Rs = [], []
+    for r, half in enumerate(hs):
+        with record_function("bpp::fold_round"):
+            e_m, e_inv = es_m[:, r], es_inv[:, r]
+            ynhat, ynhat_inv = ynhats[:, r], ynhat_invs[:, r]
+            a1, a2 = a[:, :half], a[:, half:]
+            b1, b2 = b[:, :half], b[:, half:]
+            G1, G2 = Gk[:, :half], Gk[:, half:]
+            H1, H2 = Hk[:, :half], Hk[:, half:]
+            y1 = power_of_y[:, :half]
+
+            # L = Σ (ŷ⁻¹a1)ᵢ·G2ᵢ + Σ b2ᵢ·H1ᵢ + c_L·g + d_L·h   (wip:98-113)
+            # R = Σ (ŷ·a2)ᵢ·G1ᵢ + Σ b1ᵢ·H2ᵢ + c_R·g + d_R·h   (wip:115-125)
+            c_L = fn.sum(fn.mul(fn.mul(a1, b2), y1), axis=1)
+            c_R = fn.sum(fn.mul(fn.mul(a2, b1), fn.mul(y1, ynhat[:, None])), axis=1)
+            S = torch.stack([
+                torch.cat([fn.mul(a1, ynhat_inv[:, None]), b2, c_L[:, None],
+                           dLs_m[:, r, None]], dim=1),
+                torch.cat([fn.mul(a2, ynhat[:, None]), b1, c_R[:, None],
+                           dRs_m[:, r, None]], dim=1),
+            ], dim=1)                                          # (K, 2, W, 8)
+            P = torch.stack([
+                torch.cat([G2, H1, gk[:, None], hk[:, None]], dim=1),
+                torch.cat([G1, H2, gk[:, None], hk[:, None]], dim=1),
+            ], dim=1)                                          # (K, 2, W, 4, 8)
+            LR = joint_rows_msm(curve, fn.from_mont(S), P, nbits)
+            Ls.append(LR[:, 0])
+            Rs.append(LR[:, 1])
+
+            # folds (wip:147-171): G' = e⁻¹·G1 + ŷ⁻¹e·G2, H' = e·H1 + e⁻¹·H2,
+            # each (G1ᵢ, G2ᵢ) / (H1ᵢ, H2ᵢ) pair one J = 2 group
+            a = fn.add(fn.mul(a1, e_m[:, None]),
+                       fn.mul(a2, fn.mul(ynhat, e_inv)[:, None]))
+            b = fn.add(fn.mul(b1, e_inv[:, None]), fn.mul(b2, e_m[:, None]))
+            fold4 = fn.from_mont(torch.stack(
+                [e_inv, fn.mul(ynhat_inv, e_m), e_m, e_inv], dim=1))   # (K, 4, 8)
+            pair_p = torch.cat([torch.stack([G1, G2], dim=2),
+                                torch.stack([H1, H2], dim=2)], dim=1)
+            pair_s = torch.cat([fold4[:, None, :2].expand(K, half, 2, 8),
+                                fold4[:, None, 2:].expand(K, half, 2, 8)], dim=1)
+            out = joint_ladder_msm_grouped(curve, pair_s.reshape(K, 4 * half, 8),
+                                           pair_p.reshape(K, 4 * half, 4, 8), nbits, 2)
+            Gk, Hk = out[:, :half], out[:, half:]
+            alpha = fn.add(alpha, fn.add(fn.mul(es_sqr[:, r], dLs_m[:, r]),
+                                         fn.mul(es_inv_sqr[:, r], dRs_m[:, r])))
+
+    with record_function("bpp::final_ab"):
+        # A = r·G0 + s·H0 + (r·y·b0 + s·y·a0)·g + δ·h ; B = (r·y·s)·g + η·h
+        # (wip:181-208)
+        y0, a0, b0 = power_of_y[:, 0], a[:, 0], b[:, 0]
+        rcbsca = fn.add(fn.mul(fn.mul(r_m, y0), b0), fn.mul(fn.mul(s_m, y0), a0))
+        rcs = fn.mul(fn.mul(r_m, y0), s_m)
+        zero = torch.zeros_like(r_m)
+        ident = curve.identity_like((K,), a.device)
+        AB_s = torch.stack([torch.stack([r_m, s_m, rcbsca, delta_m], dim=1),
+                            torch.stack([rcs, eta_m, zero, zero], dim=1)], dim=1)
+        AB_p = torch.stack([torch.stack([Gk[:, 0], Hk[:, 0], gk, hk], dim=1),
+                            torch.stack([gk, hk, ident, ident], dim=1)], dim=1)
+        AB = joint_rows_msm(curve, fn.from_mont(AB_s), AB_p, nbits)
+
+        # final responses (wip:211-216)
+        r_prime = fn.add(r_m, fn.mul(a0, ef_m))
+        s_prime = fn.add(s_m, fn.mul(b0, ef_m))
+        d_prime = fn.add(eta_m, fn.add(fn.mul(delta_m, ef_m),
+                                       fn.mul(alpha, fn.mul(ef_m, ef_m))))
+    return (torch.stack(Ls, dim=1), torch.stack(Rs, dim=1), AB[:, 0], AB[:, 1],
+            r_prime, s_prime, d_prime)

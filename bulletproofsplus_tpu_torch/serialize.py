@@ -14,6 +14,7 @@ from typing import List
 import torch
 
 from .curves import host
+from .device import entry_device
 from .errors import FormatError
 
 POINT_LEN = 32
@@ -73,10 +74,11 @@ def decode_proof(curve, data: bytes):
 
 
 def proof_from_bytes(curve, data: bytes, device=None):
-    """Bytes → RangeProof of tensors on `device`."""
+    """Bytes → RangeProof of tensors on `device` (default: the CUDA card)."""
     from .protocol.range import RangeProof
     from .protocol.wip import WipProof
 
+    device = entry_device(device)
     rounds, pts, (r, s, d) = decode_proof(curve, data)
     P = curve.encode_points(pts, device)
     fn = curve.fn

@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch range-proof verifier once on one CUDA card.
+"""Drive the PyTorch port's batch prover and verifier once on one CUDA card.
 
 Phases (any failure exits nonzero before the final line):
-  1. build the four kernels from bulletproofsplus_tpu_torch/csrc; print the
+  1. build the five kernels from bulletproofsplus_tpu_torch/csrc; print the
      card's name and power limit (nvidia-smi);
   2. hold K1 (Montgomery multiply), K2 (joint ladder) and K3 (grouped point
      sum) against their plain PyTorch versions on the card, at the shapes
-     of the batch below, and time both;
+     of the verify batch below, and time both;
   3. build PublicKey.new(n·m) and its fixed-base tables on the card, then
      hold K4 (fixed-base lookup) against its plain version on those tables
      (unsigned) and on a smaller signed table;
   4. batch-verify K = 256 statements at edwards25519, n = 64, m = 16
      (statement k is fixture proof k mod P, each with its own random
      weight: the MSM work of 256 proofs) with every launch counter at 0
-     before the run; the batch must accept and every kernel must have run;
+     before the run; the batch must accept and K1-K4 must have run;
   5. the same batch with one scalar of one proof changed must reject;
   6. single verify (K = 1) of one fixture proof must accept; the exponent
      vectors of two proofs must equal those of the plain (CPU) path;
-  7. print warm batch timings (best of 3), the kernels' JSON line, and
-     the device line last.
+  7. hold K5 (per-lane ladder) against its plain version at the prover's
+     shape (256 lanes, 253 bits, with a zero scalar and the identity);
+  8. rebuild the fixture's 16 witnesses, commit them (each commitment must
+     equal the fixture's bytes) and batch-prove them on the card: every
+     proof must equal the committed golden-made bytes;
+  9. batch-prove the K = 256 statements of bench.py (v = (7k + 3i + 2) mod
+     2^n, γ = 2i + k + 3), committed outside the timed window, with every
+     launch counter at 0 before the first run; K1, K2, K3 and K5 must have
+     run; then batch-verify the proven batch (accept) and a tampered copy
+     (reject);
+ 10. prove and verify one m = 1 statement at n = 64;
+ 11. print the batch timings, the kernels' JSON line (time, plain time,
+     bound and launches of each kernel), the card, and the device line last.
 
-The statements are golden-oracle proofs committed in
-bulletproofsplus_tpu_torch/data (scripts/make_torch_fixtures.py), because
-the prover is not ported yet. Usage: python3 chip_smoke.py [--seed S]
+Usage: python3 chip_smoke.py [--seed S]
 """
 from __future__ import annotations
 
@@ -41,6 +50,19 @@ FIXTURE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "data",
                        "ed25519_n64_m16_det.bin")
 K_BATCH = 256
 DEVICE = "cuda:0"
+
+# Least time for a kernel's work (its roofline bound): the larger of its
+# bytes (each input read once, each output written once) over the H100
+# SXM's 3.35 TB/s, and its integer multiply-adds over the card's int32 rate.
+# NVIDIA's data sheet gives 67 TFLOP/s in float32, i.e. 33.5 T FMA/s on 128
+# lanes an SM; the int32 multiply pipe has 64, so 16.75 T multiply-adds/s.
+# A 32×32→64 product counts as two (low and high word); a CIOS Montgomery
+# product of 8 words has 128 of them and 8 low products; a point add has 9
+# Montgomery products, a doubling 8. Adds, subtracts and selects are free.
+HBM_BYTES_PER_S = 3.35e12
+INT_MADS_PER_S = 16.75e12
+FE_MUL_MADS = 8 * (16 * 2 + 1)
+ADD_MULS, DBL_MULS = 9, 8
 
 
 def log(msg: str) -> None:
@@ -76,6 +98,19 @@ def int_err(xs, ys) -> int:
     return max((abs(a - b) for a, b in zip(xs, ys)), default=0)
 
 
+def bound(nbytes: int, fe_muls: int):
+    """(bound_ms, bound_by) for `nbytes` of traffic and `fe_muls` products."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = fe_muls * FE_MUL_MADS / INT_MADS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ladder_muls(groups: int, jway: int, nwin: int) -> int:
+    """Montgomery products of `groups` J-way windowed ladders (tables by 14
+    adds each, then nwin windows of 4 doublings and J adds)."""
+    return groups * (jway * 14 * ADD_MULS + nwin * (4 * DBL_MULS + jway * ADD_MULS))
+
+
 def affine_ints(curve, pts) -> list:
     out = []
     for A in curve.decode_points(pts):
@@ -109,14 +144,19 @@ def main() -> int:
         return 2
 
     from bulletproofsplus_tpu_torch import (
+        DeterministicRng,
         DeterministicTranscript,
         ProofBatch,
         PublicKey,
+        RangeProver,
         VerificationError,
+        batch_prove,
         batch_verify,
         curve_ops,
         kernels,
+        prove,
         serialize,
+        stack_commitments,
         verify,
     )
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
@@ -155,6 +195,7 @@ def main() -> int:
     J = joint_width(var_lanes)
     G = -(-var_lanes // J)
     nbits = fn.order_bits
+    nwin = -(-nbits // 4)
 
     # -- 2. K1, K2, K3 against their plain versions -------------------------
     N1 = K_BATCH * mn
@@ -164,7 +205,7 @@ def main() -> int:
     ref, plain_ms = once_ms(lambda: mont_mul_plain(a, b, fn.spec))
     err = int_err(fn.decode(ker), fn.decode(ref))
     ms = cuda_ms(lambda: mont_mul(a, b, fn.spec), 20)
-    results["K1"] = (err, ms, plain_ms)
+    results["K1"] = (err, ms, plain_ms, bound(N1 * 96, N1))
     log(f"K1 mont_mul N={N1}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
 
     pts = random_points(G * J, rnd.randrange(1 << 30), dev).reshape(G, J, 4, 8)
@@ -174,7 +215,8 @@ def main() -> int:
     ref, plain_ms = once_ms(lambda: cc.joint_ladder_plain(curve, scal, pts, nbits))
     err = int_err(fp.decode_plain(ker), fp.decode_plain(ref))
     ms = cuda_ms(lambda: cc.joint_ladder_msm_grouped(curve, flat_s, flat_p, nbits, J), 3)
-    results["K2"] = (err, ms, plain_ms)
+    results["K2"] = (err, ms, plain_ms,
+                     bound(G * J * 160 + G * 128, ladder_muls(G, J, nwin)))
     log(f"K2 joint ladder G={G} J={J}: err {err}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
 
     grp = ker[None]                                   # (1, G, 4, 8): the MSM's sum
@@ -185,7 +227,7 @@ def main() -> int:
     err = max(err, int_err(affine_ints(curve, cc.sum_points_grouped(curve, multi)),
                            affine_ints(curve, cc.sum_points_plain(curve, multi))))
     ms = cuda_ms(lambda: cc.sum_points_grouped(curve, grp), 20)
-    results["K3"] = (err, ms, plain_ms)
+    results["K3"] = (err, ms, plain_ms, bound(G * 128 + 128, (G - 1) * ADD_MULS))
     log(f"K3 sum_points W={G}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
 
     # -- 3. public key, tables, K4 -----------------------------------------
@@ -209,10 +251,12 @@ def main() -> int:
             curve, cc.fixed_lookup_partials(curve, stab, sdig, True)[None])),
         affine_ints(curve, cc.fixed_lookup_plain(curve, stab, sdig, True))))
     ms = cuda_ms(lambda: cc.fixed_lookup_partials(curve, tables, dig, False), 20)
-    results["K4"] = (err, ms, plain_ms)
+    lanes = dig.numel()
+    results["K4"] = (err, ms, plain_ms,
+                     bound(lanes * 132 + ker4.shape[0] * 128, lanes * ADD_MULS))
     log(f"K4 fixed lookup lanes={dig.numel()}: err {err}, kernel {ms:.4f} ms, "
         f"plain {plain_ms:.1f} ms")
-    for name, (err, _, _) in results.items():
+    for name, (err, *_) in results.items():
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version (err {err})")
 
@@ -233,15 +277,23 @@ def main() -> int:
                      rng=lambda: wrng.getrandbits(128))
 
     wrappers = {"K1": mont_mul, "K2": cc.joint_ladder_msm_grouped,
-                "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials}
-    for w in wrappers.values():
-        w.launches = 0
-    _, first_ms = once_ms(run_batch)
-    launches = {k: w.launches for k, w in wrappers.items()}
+                "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
+                "K5": cc.ladder_scalar_mul}
+
+    def counted(run, needed):
+        """Run `run` once with every launch counter at 0 just before it;
+        (result, ms, launches). Fails if a kernel of `needed` never ran."""
+        for w in wrappers.values():
+            w.launches = 0
+        out, ms = once_ms(run)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        missing = [k for k in needed if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the path: {missing}")
+        return out, ms, counts
+
+    _, first_ms, launches = counted(run_batch, ("K1", "K2", "K3", "K4"))
     log(f"batch_verify K={K_BATCH} accepted ({first_ms:.1f} ms); launches {launches}")
-    missing = [k for k, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     warm = [once_ms(run_batch)[1] for _ in range(3)]
     best = min(warm)
     log(f"warm batch_verify: {[round(x, 1) for x in warm]} ms; best {best:.1f} ms "
@@ -280,21 +332,119 @@ def main() -> int:
             raise AssertionError("device exponent vectors differ from the plain path")
     log("exponent vectors (K=2) equal on card and CPU")
 
-    # -- 7. report ------------------------------------------------------------
+    # -- 7. K5 against its plain version at the prover's shape --------------
+    pts5 = random_points(K_BATCH, rnd.randrange(1 << 30), dev)
+    pts5[1] = curve.identity(dev)
+    s5 = fn.encode_plain([0] + [rnd.randrange(fn.p) for _ in range(K_BATCH - 1)], dev)
+    ker5 = cc.ladder_scalar_mul(curve, s5, pts5, nbits)
+    ref5, plain_ms = once_ms(lambda: cc.ladder_plain(curve, s5, pts5, nbits))
+    err = int_err(fp.decode_plain(ker5), fp.decode_plain(ref5))
+    ms = cuda_ms(lambda: cc.ladder_scalar_mul(curve, s5, pts5, nbits), 20)
+    results["K5"] = (err, ms, plain_ms,
+                     bound(K_BATCH * (128 + 32 + 128), ladder_muls(K_BATCH, 1, nwin)))
+    log(f"K5 ladder lanes={K_BATCH}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    if err != 0:
+        raise AssertionError(f"K5 disagrees with its plain version (err {err})")
+
+    # -- 8. the fixture's statements, proven on the card ----------------------
+    t = time.time()
+    fix_provers = []
+    for k in range(P):
+        wit = random.Random(1000 + k)    # scripts/make_torch_fixtures.py:45-48
+        pr = RangeProver()
+        for _ in range(m):
+            pr.commit(pk, wit.randrange(1 << n), wit.randrange(1, fn.p))
+        fix_provers.append(pr)
+    for k, (pr, (comm_bytes, _)) in enumerate(zip(fix_provers, rows)):
+        mine = b"".join(serialize.point_bytes(A) for A in
+                        curve.decode_points(torch.stack(pr.commitment_vec)))
+        if mine != comm_bytes:
+            raise AssertionError(f"commitments of fixture statement {k} differ")
+    log(f"committed the {P} fixture witnesses ({P * m} commitments) in "
+        f"{time.time() - t:.1f} s; all equal the fixture")
+    fixed, fix_ms = once_ms(lambda: batch_prove(
+        curve, pk, n, fix_provers, [DeterministicTranscript(m)] * P,
+        [DeterministicRng(m)] * P))
+    differ = [k for k in range(P)
+              if serialize.proof_to_bytes(curve, fixed[k]) != rows[k][1]]
+    if differ:
+        raise AssertionError(f"card-proven fixture statements differ: {differ}")
+    log(f"batch_prove K={P}: all {P} proofs equal the fixture bytes ({fix_ms:.1f} ms)")
+
+    # -- 9. bench.py's batch: prove K = 256, then verify it -----------------
+    t = time.time()
+    bench = []
+    for k in range(K_BATCH):
+        pr = RangeProver()
+        for i in range(m):
+            pr.commit(pk, (7 * k + 3 * i + 2) % (1 << n), 2 * i + k + 3)
+        bench.append(pr)
+    V_bench = stack_commitments([pr.commitment_vec for pr in bench])
+    log(f"committed {K_BATCH * m} bench witnesses in {time.time() - t:.1f} s")
+
+    def run_prove():
+        return batch_prove(curve, pk, n, bench, [DeterministicTranscript(m)] * K_BATCH,
+                           [DeterministicRng(m)] * K_BATCH)
+
+    proven, prove_first_ms, prove_launches = counted(run_prove, ("K1", "K2", "K3", "K5"))
+    log(f"batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}")
+    prove_warm = [once_ms(run_prove)[1] for _ in range(3)]
+    prove_best = min(prove_warm)
+    log(f"warm batch_prove: {[round(x, 1) for x in prove_warm]} ms; best "
+        f"{prove_best:.1f} ms = {K_BATCH / prove_best * 1e3:.1f} proofs/s")
+    bench_trs = [DeterministicTranscript(m)] * K_BATCH
+    batch_verify(curve, pk, n, proven, V_bench, bench_trs,
+                 rng=lambda: wrng.getrandbits(128))
+    log("card-proven bench batch verified (accept)")
+    bad = proven.take(slice(None))
+    bad.s_prime = bad.s_prime.clone()
+    bad.s_prime[K_BATCH // 2] = fn.add(bad.s_prime[K_BATCH // 2], fn.one(dev))
+    try:
+        batch_verify(curve, pk, n, bad, V_bench, bench_trs,
+                     rng=lambda: wrng.getrandbits(128))
+    except VerificationError:
+        log("tampered card-proven batch rejected")
+    else:
+        raise AssertionError("tampered card-proven batch was accepted")
+
+    # -- 10. m = 1 prove and verify ------------------------------------------
+    one = RangeProver()
+    V1 = one.commit(pk, 0xDEADBEEF12345678 % (1 << n), 987654321)
+    proof1, prove1_ms = once_ms(lambda: prove(curve, pk, n, one, DeterministicTranscript(1),
+                                              DeterministicRng(1)))
+    verify(curve, proof1, pk, n, V1[None], DeterministicTranscript(1))
+    log(f"m=1 prove ({prove1_ms:.1f} ms) and verify accepted")
+
+    # -- 11. report -----------------------------------------------------------
     sources = {"K1": ("mont_mul", "mont_mul.cu", "fields/pallas_ops.py:369"),
                "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
                "K3": ("sum_points", "sum_points.cu", "curves/pallas_curve.py:553"),
-               "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371")}
-    report = [{"name": f"{k} {name}", "route": "cuda",
-               "source": f"bulletproofsplus_tpu_torch/csrc/{src}",
-               "replaces": f"bulletproofsplus_tpu/{tpu}",
-               "launches": launches[k], "max_abs_err": results[k][0],
-               "ms": results[k][1], "plain_ms": results[k][2]}
-              for k, (name, src, tpu) in sources.items()]
+               "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
+               "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
+    report = []
+    for k, (name, src, tpu) in sources.items():
+        err, ms, plain_ms, (bound_ms, bound_by) = results[k]
+        report.append({
+            "name": f"{k} {name}", "route": "cuda",
+            "source": f"bulletproofsplus_tpu_torch/csrc/{src}",
+            "replaces": f"bulletproofsplus_tpu/{tpu}",
+            "launches": launches[k] + prove_launches[k],
+            "launches_by_path": {"batch_verify": launches[k],
+                                 "batch_prove": prove_launches[k]},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes Montgomery products on 8×32-bit
+            # limbs or Edwards point ladders and sums
+            "library_ms": None})
     print(json.dumps({"batch_verify": {"K": K_BATCH, "n": n, "m": m,
                                        "first_ms": first_ms, "warm_ms": warm,
                                        "verify_per_s": K_BATCH / best * 1e3,
                                        "single_ms": single_ms}}))
+    print(json.dumps({"batch_prove": {"K": K_BATCH, "n": n, "m": m,
+                                      "first_ms": prove_first_ms, "warm_ms": prove_warm,
+                                      "proofs_per_s": K_BATCH / prove_best * 1e3,
+                                      "launches": prove_launches,
+                                      "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Write the golden-made proof fixture that the PyTorch port verifies.
 
-The port's card-side drive (chip_smoke.py) cannot import the JAX package, so
-it cannot prove: it verifies statements proved here by the pure-Python golden
-oracle in deterministic mode (DeterministicTranscript + DeterministicRng,
-with a different seeded value set and blindings per statement). Every
+The port's card-side drive (chip_smoke.py) cannot import the JAX package or
+golden. It verifies statements proved here by the pure-Python golden oracle
+in deterministic mode (DeterministicTranscript + DeterministicRng, statement
+k's values and blindings drawn from random.Random(1000 + k)), and it proves
+the same witnesses on the card, whose proofs must equal these bytes. Every
 statement is checked with golden `protocol.verify` before it is written.
 
 File format (all integers big-endian):

@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's batch verify (K = 256, n = 64, m = 16) on a card.
+"""Profile the PyTorch port's batch verify or batch prove (K = 256, n = 64,
+m = 16) on a card.
 
-Runs the committed fixture batch (as chip_smoke.py does) warm, then one run
-under torch.profiler. Prints, per stage range of protocol/batch.py
-(bpp::exponents, bpp::rlc_merge, bpp::variable_msm, bpp::fixed_msm,
-bpp::identity_check), its host wall time and the device time of the kernels
-it launched; the device busy share of the whole run; the top kernels by
-device time; and launch counts. Writes the Chrome trace to --trace.
+Verify (the default) runs the committed fixture batch (as chip_smoke.py
+does); --prove batch-proves bench.py's K statements (v = (7k + 3i + 2) mod
+2^n, γ = 2i + k + 3) in the deterministic mode. Either runs 3 times warm,
+then once under torch.profiler, and prints, per stage range
+(protocol/batch.py: bpp::exponents, bpp::rlc_merge, bpp::variable_msm,
+bpp::fixed_msm, bpp::identity_check; protocol/batchprove.py and wip.py:
+bpp::bit_commitment, bpp::prove_setup, bpp::fold_round summed over the
+rounds, bpp::final_ab), its host wall time and the device time of the
+kernels it launched; the device busy share of the whole run; the top
+kernels by device time; launch counts; the least time (chip_smoke.bound)
+of every hand-written kernel's launches in the profiled run, from the
+sizes each launch was given; and the wall times of the 3 unprofiled warm
+runs (the first includes first-use set-up). Writes the Chrome trace to
+--trace.
 
-Usage: python3 scripts/profile_torch_batch_verify.py [K] [--trace PATH]
+Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove] [--trace PATH]
 """
 from __future__ import annotations
 
@@ -26,8 +35,10 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
-          "bpp::fixed_msm", "bpp::identity_check")
+VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
+                 "bpp::fixed_msm", "bpp::identity_check")
+PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
+                "bpp::final_ab")
 
 
 def union_us(intervals):
@@ -42,9 +53,35 @@ def union_us(intervals):
     return total
 
 
+def launch_bound_ms(name: str, args) -> float:
+    """chip_smoke.bound of one C-entry launch, from its size arguments."""
+    from chip_smoke import ADD_MULS, bound, ladder_muls
+
+    if name == "bpp_mont_mul":
+        n = args[3]
+        work = (n * 96, n)
+    elif name == "bpp_joint_ladder":
+        G, J, nwin = args[3:6]
+        work = (G * J * 160 + G * 128, ladder_muls(G, J, nwin))
+    elif name == "bpp_sum_points":
+        G, W = args[2:4]
+        work = (G * W * 128 + G * 128, G * (W - 1) * ADD_MULS)
+    elif name == "bpp_fixed_lookup":
+        lanes, nblocks = args[3], args[5]
+        work = (lanes * 132 + nblocks * 128, lanes * ADD_MULS)
+    elif name == "bpp_ladder":
+        N, nwin = args[3:5]
+        work = (N * 288, ladder_muls(N, 1, nwin))
+    else:
+        raise ValueError(f"no bound for {name}")
+    return bound(*work)[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("K", type=int, nargs="?", default=256)
+    ap.add_argument("--prove", action="store_true",
+                    help="profile batch_prove instead of batch_verify")
     ap.add_argument("--trace", default="profile_batch_verify.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args()
@@ -52,10 +89,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    from bulletproofsplus_tpu_torch import kernels as kern
     from bulletproofsplus_tpu_torch import (
+        DeterministicRng,
         DeterministicTranscript,
         ProofBatch,
         PublicKey,
+        RangeProver,
+        batch_prove,
         batch_verify,
         curve_ops,
         serialize,
@@ -67,22 +108,49 @@ def main() -> int:
                            "ed25519_n64_m16_det.bin"), "rb") as f:
         n, m, rows = serialize.read_fixture(f.read())
     pk = PublicKey.new(curve, n * m, dev)
-    pk.fixed_tables(n * m)
-    decoded = [serialize.proof_from_bytes(curve, w, dev) for _, w in rows]
-    comms = torch.stack([curve.encode_points(serialize.points_from_bytes(c), dev)
-                         for c, _ in rows])
-    idx = torch.arange(K, device=dev) % len(rows)
-    batch = ProofBatch.from_proofs(decoded).take(idx)
-    V = comms[idx]
-    rnd = random.Random(0)
+    if args.prove:
+        stages = PROVE_STAGES
+        provers = []
+        for k in range(K):
+            pr = RangeProver()
+            for i in range(m):
+                pr.commit(pk, (7 * k + 3 * i + 2) % (1 << n), 2 * i + k + 3)
+            provers.append(pr)
 
-    def run():
-        batch_verify(curve, pk, n, batch, V, [DeterministicTranscript(m)] * K,
-                     rng=lambda: rnd.getrandbits(128))
+        def run():
+            batch_prove(curve, pk, n, provers, [DeterministicTranscript(m)] * K,
+                        [DeterministicRng(m)] * K)
+    else:
+        stages = VERIFY_STAGES
+        pk.fixed_tables(n * m)
+        decoded = [serialize.proof_from_bytes(curve, w, dev) for _, w in rows]
+        comms = torch.stack([curve.encode_points(serialize.points_from_bytes(c), dev)
+                             for c, _ in rows])
+        idx = torch.arange(K, device=dev) % len(rows)
+        batch = ProofBatch.from_proofs(decoded).take(idx)
+        V = comms[idx]
+        rnd = random.Random(0)
 
+        def run():
+            batch_verify(curve, pk, n, batch, V, [DeterministicTranscript(m)] * K,
+                         rng=lambda: rnd.getrandbits(128))
+
+    calls = []
+    launch = kern.launch
+
+    def recording(name, *a, device):
+        calls.append((name, a))
+        launch(name, *a, device=device)
+
+    kern.launch = recording
+    warm_ms = []
     for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         run()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    calls.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -94,21 +162,26 @@ def main() -> int:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     busy_us = union_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
-    stages = {}
-    for name in STAGES:
+    per_stage = {}
+    for name in stages:
         host = [e for e in events if e.get("name") == name
                 and e.get("cat") == "user_annotation"]
         gpu = [e for e in events if e.get("name") == name
                and e.get("cat") == "gpu_user_annotation"]
         spans = [(g["ts"], g["ts"] + g["dur"]) for g in gpu]
         mine = [e for e in kernels if any(lo <= e["ts"] <= hi for lo, hi in spans)]
-        stages[name] = {
+        per_stage[name] = {
             "host_ms": sum(e["dur"] for e in host) / 1e3,
             "device_span_ms": sum(e["dur"] for e in gpu) / 1e3,
             "device_busy_ms": union_us([(e["ts"], e["ts"] + e["dur"])
                                         for e in mine]) / 1e3,
             "launches": len(mine),
         }
+    bounds = {}
+    for name, a in calls:
+        b = bounds.setdefault(name, {"launches": 0, "bound_ms": 0.0})
+        b["launches"] += 1
+        b["bound_ms"] += launch_bound_ms(name, a)
     by_name = {}
     for e in kernels:
         d = by_name.setdefault(e["name"][:80], [0, 0.0])
@@ -121,11 +194,13 @@ def main() -> int:
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25),
           file=sys.stderr)
     print(json.dumps({
-        "card": card, "K": K, "wall_ms": wall_ms,
+        "card": card, "mode": "prove" if args.prove else "verify", "K": K,
+        "warm_ms_unprofiled": warm_ms, "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "kernel_launches": len(kernels),
-        "stages": stages,
+        "stages": per_stage,
+        "kernel_bounds": bounds,
         "top_kernels": [{"name": k, "count": c, "ms": t} for k, (c, t) in top],
     }, indent=1))
     return 0

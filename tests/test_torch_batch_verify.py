@@ -78,7 +78,7 @@ def statements(env):
 
 def port_batch(c, stmts, tamper=False):
     batch = bt.ProofBatch.from_proofs(
-        [serialize.proof_from_bytes(c, wire) for _, _, wire in stmts])
+        [serialize.proof_from_bytes(c, wire, "cpu") for _, _, wire in stmts])
     V = torch.stack([c.encode_points(comms) for _, comms, _ in stmts])
     if tamper:
         batch.r_prime = batch.r_prime.clone()
@@ -171,7 +171,7 @@ def test_exponent_vectors_match_jax(env, m):
 def test_batch_verify_polarity_matches_golden(env, statements, m):
     c, _, gc = env
     gpk, stmts = statements[m]
-    pk = bt.PublicKey.new(c, N * m)
+    pk = bt.PublicKey.new(c, N * m, "cpu")
     for tamper in (False, True):
         assert port_accepts(c, pk, stmts, m, tamper) is not tamper
         assert golden_accepts(gc, gpk, stmts, tamper) is not tamper
@@ -179,7 +179,7 @@ def test_batch_verify_polarity_matches_golden(env, statements, m):
 
 def test_batch_verify_polarity_matches_jax(env, statements, jax_polarity):
     c = env[0]
-    pk = bt.PublicKey.new(c, N * 2)
+    pk = bt.PublicKey.new(c, N * 2, "cpu")
     mine = tuple(port_accepts(c, pk, statements[2][1], 2, tamper)
                  for tamper in (False, True))
     assert mine == jax_polarity == (True, False)
@@ -189,7 +189,7 @@ def test_batch_verify_polarity_matches_jax(env, statements, jax_polarity):
 def test_single_verify_matches_golden(env, statements, m):
     c = env[0]
     _, stmts = statements[m]
-    pk = bt.PublicKey.new(c, 64)   # longer than n·m: verify uses the prefix
+    pk = bt.PublicKey.new(c, 64, "cpu")   # longer than n·m: verify uses the prefix
     batch, V = port_batch(c, stmts)
     bt.verify(c, batch[0], pk, N, V[0], bt.DeterministicTranscript(m))
     bad, _ = port_batch(c, stmts, tamper=True)
@@ -203,18 +203,18 @@ def test_proof_batch_from_jax_equals_port_decode(env, statements):
     c, jc, _ = env
     stmts = statements[2][1]
     jb, jV = jax_batch(jc, stmts)
-    got = convert.proof_batch_from_jax(jb, c)
+    got = convert.proof_batch_from_jax(jb, c, "cpu")
     want, V = port_batch(c, stmts)
     for f in dataclasses.fields(want):
         assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
-    assert torch.equal(convert.commitments_from_jax(jV, c), V)
+    assert torch.equal(convert.commitments_from_jax(jV, c, "cpu"), V)
     assert serialize.proof_to_bytes(c, want[0]) == stmts[0][2]
 
 
 def test_batch_verify_argument_errors(env, statements):
     c = env[0]
     batch, V = port_batch(c, statements[2][1])
-    pk = bt.PublicKey.new(c, N * 2)
+    pk = bt.PublicKey.new(c, N * 2, "cpu")
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, N, batch, V[:1], [bt.DeterministicTranscript(2)] * K)
     with pytest.raises(NotImplementedError):
@@ -241,7 +241,7 @@ def test_committed_fixture_decodes():
         n, m, rows = serialize.read_fixture(f.read())
     assert (n, m) == (64, 16) and len(rows) >= 16
     comms, wire = rows[0]
-    proof = serialize.proof_from_bytes(c, wire)
+    proof = serialize.proof_from_bytes(c, wire, "cpu")
     assert proof.proof.rounds == 10
     assert len(serialize.points_from_bytes(comms)) == m
     assert serialize.proof_to_bytes(c, proof) == wire
@@ -256,6 +256,6 @@ def test_zero_challenge_rejected_by_replay(env, statements):
     """The host replay rejects a zero challenge (range.py:392)."""
     c = env[0]
     batch, V = port_batch(c, statements[2][1])
-    pk = bt.PublicKey.new(c, N * 2)
+    pk = bt.PublicKey.new(c, N * 2, "cpu")
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, N, batch, V, [_ZeroRoundTranscript(2)] * K)

@@ -1,4 +1,5 @@
-"""Kernels K1–K4 against their plain versions on an NVIDIA card.
+"""Kernels K1–K5 against their plain versions, and the port's prover and
+verifier, on an NVIDIA card.
 
 Marked `cuda`: every test skips where torch sees no CUDA device (it decides
 inside the test, so every worker collects the same tests). This file
@@ -108,3 +109,36 @@ def test_batch_verify_on_card(dev):
     batch.s_prime[2] = c.fn.add(batch.s_prime[2], c.fn.one(dev))
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, n, batch, V, trs)
+
+
+def test_k5_kernel_matches_plain(dev):
+    c = bt.curve_ops()
+    rnd = random.Random(5)
+    P = points(37, 5, dev)
+    P[3] = c.identity(dev)
+    s = c.fn.encode_plain([0] + [rnd.randrange(c.fn.p) for _ in range(36)], dev)
+    before = cc.ladder_scalar_mul.launches
+    got = cc.ladder_scalar_mul(c, s, P, 253)
+    assert cc.ladder_scalar_mul.launches == before + 1
+    assert torch.equal(got, cc.ladder_plain(c, s, P, 253))
+
+
+def test_batch_prove_on_card_equals_fixture(dev):
+    """Two fixture witnesses (scripts/make_torch_fixtures.py:45-48), proven on
+    the card, give the committed golden-made bytes."""
+    c = bt.curve_ops()
+    with open(FIXTURE, "rb") as f:
+        n, m, rows = serialize.read_fixture(f.read())
+    pk = bt.PublicKey.new(c, n * m, dev)
+    provers = []
+    for k in range(2):
+        wit = random.Random(1000 + k)
+        p = bt.RangeProver()
+        for _ in range(m):
+            p.commit(pk, wit.randrange(1 << n), wit.randrange(1, c.fn.p))
+        provers.append(p)
+    batch = bt.batch_prove(c, pk, n, provers, [bt.DeterministicTranscript(m)] * 2,
+                           [bt.DeterministicRng(m)] * 2)
+    assert batch.A.device.type == "cuda"
+    assert [serialize.proof_to_bytes(c, batch[k]) for k in range(2)] == [
+        wire for _, wire in rows[:2]]

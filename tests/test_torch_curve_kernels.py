@@ -142,7 +142,7 @@ def test_fixed_base_mode_budget(curves):
 def test_publickey_from_jax_equals_port(curves):
     c, jc, _ = curves
     jpk = JaxPublicKey.new(jc, 16)
-    got = convert.publickey_from_jax(jpk, c)
-    pk = PublicKey.new(c, 16)
+    got = convert.publickey_from_jax(jpk, c, "cpu")
+    pk = PublicKey.new(c, 16, "cpu")
     for name in ("g", "h", "G_vec", "H_vec"):
         assert torch.equal(getattr(got, name), getattr(pk, name)), name

@@ -123,11 +123,11 @@ def test_convert_field_from_jax(montgomery):
     f, jf = pair("fn")
     xs = rand_ints(9, 6, f.p)
     arr = np.asarray(jf.encode(xs) if montgomery else jf.encode_plain(xs))
-    got = convert.field_from_jax(arr.reshape(2, 3, -1), f, montgomery)
+    got = convert.field_from_jax(arr.reshape(2, 3, -1), f, montgomery, device="cpu")
     assert got.shape == (2, 3, 8)
     assert (f.decode(got) if montgomery else f.decode_plain(got)) == xs
     twelve = field_ops(ALL_SPECS["ed25519_fl"])
-    assert f.decode(convert.field_from_jax(twelve.encode(xs), f)) == xs
+    assert f.decode(convert.field_from_jax(twelve.encode(xs), f, device="cpu")) == xs
 
 
 def test_port_imports_without_jax():
