@@ -58,8 +58,10 @@ def _resolve(gen: torch.Tensor, passes: torch.Tensor):
     (passes[i]; never both). With those as the bits of G and P, these are
     the carries of the binary sum (P | G) + G, whose bits generate exactly
     where G does and propagate exactly where P does. Returns (0/1 carry into
-    each column, carry out of the top)."""
+    each column, carry out of the top). The carries are bits of one int64,
+    so at most 62 columns."""
     n = gen.shape[-1]
+    assert n <= 62, "carries of more than 62 columns overflow int64"
     idx, w = _positions(n, gen.device)
     G = (gen.to(torch.int64) * w).sum(-1)
     PG = (passes.to(torch.int64) * w).sum(-1) | G
@@ -102,12 +104,11 @@ def _wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return F.pad(cols, (0, 1))
 
 
-def _norm16(t: torch.Tensor, passes: int = 3) -> torch.Tensor:
+def _norm16(t: torch.Tensor) -> torch.Tensor:
     """Nonnegative int64 columns → canonical 16-bit limbs, mod 2^(16·len).
-    Columns below 2^40 need three carry-save passes and below 2^60 four to
-    leave every column at most 2^16; the remaining carries are then 0 or 1
-    and resolve at once (`_resolve`)."""
-    for _ in range(passes):
+    Three carry-save passes take columns below 2^63 to at most 2^16 + 2^15,
+    so each remaining carry is 0 or 1 and they resolve at once (`_resolve`)."""
+    for _ in range(3):
         t = (t & MASK16) + F.pad((t >> 16)[..., :-1], (1, 0))
     c_in, _ = _resolve(t >> 16, t == MASK16)
     return (t + c_in) & MASK16
@@ -142,8 +143,8 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
     # T = a·b stays in unnormalized columns (< 2^36): its low 16 columns are
     # still ≡ T mod R, and T + m·p is normalized once at the end
     t = _wide(_halves(a), _halves(b))
-    m = _norm16(_wide(t[..., :16], c["np16"])[..., :16], passes=4)  # T·N' mod R
-    s = _norm16(t + _wide(m, c["p16"]))                             # ≡ 0 mod R
+    m = _norm16(_wide(t[..., :16], c["np16"])[..., :16])       # T·N' mod R
+    s = _norm16(t + _wide(m, c["p16"]))                         # ≡ 0 mod R
     hi = s[..., 16:].reshape(*s.shape[:-1], NUM_LIMBS, 2)
     return reduce_once(hi[..., 0] | (hi[..., 1] << 16), c["p64"])
 

@@ -1,0 +1,87 @@
+"""The least time an H100 SXM could take for the work of a kernel launch.
+
+A launch's bound is the larger of two times: the bytes it must move (each
+input read once, each output written once) over HBM's 3.35 TB/s, and its
+integer multiply-adds over the card's int32 multiply rate. NVIDIA's data
+sheet gives 67 TFLOP/s in float32, i.e. 33.5 T FMA/s on 128 lanes an SM;
+the int32 multiply pipe has 64, so 16.75 T multiply-adds/s. A 32×32→64
+product counts as two (low and high word); a CIOS Montgomery product of 8
+words has 128 of them and 8 low products; a point add has 9 Montgomery
+products, a doubling 8. Adds, subtracts and selects are free.
+
+The work of a launch comes from the size arguments it passed to
+`kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
+read the same formulas off the same launches (`recorded_launches`).
+"""
+from __future__ import annotations
+
+import contextlib
+
+HBM_BYTES_PER_S = 3.35e12
+INT_MADS_PER_S = 16.75e12
+FE_MUL_MADS = 8 * (16 * 2 + 1)
+ADD_MULS, DBL_MULS = 9, 8
+POINT_BYTES, SCALAR_BYTES = 128, 32
+
+
+def ladder_muls(groups: int, jway: int, nwin: int) -> int:
+    """Montgomery products of `groups` J-way windowed ladders (tables by 14
+    adds each, then nwin windows of 4 doublings and J adds)."""
+    return groups * (jway * 14 * ADD_MULS + nwin * (4 * DBL_MULS + jway * ADD_MULS))
+
+
+def launch_work(name: str, args) -> tuple:
+    """(bytes, Montgomery products) of one launch of C entry point `name`
+    with the arguments `args` it was given (pointers first, as in
+    kernels.SIGNATURES)."""
+    if name == "bpp_mont_mul":
+        n = args[3]
+        return n * 3 * SCALAR_BYTES, n
+    if name == "bpp_joint_ladder":
+        G, J, nwin = args[3:6]
+        return (G * J * (POINT_BYTES + SCALAR_BYTES) + G * POINT_BYTES,
+                ladder_muls(G, J, nwin))
+    if name == "bpp_sum_points":
+        G, W = args[2:4]
+        return G * W * POINT_BYTES + G * POINT_BYTES, G * (W - 1) * ADD_MULS
+    if name == "bpp_fixed_lookup":
+        lanes, nblocks = args[3], args[5]
+        return lanes * (POINT_BYTES + 4) + nblocks * POINT_BYTES, lanes * ADD_MULS
+    if name == "bpp_ladder":
+        N, nwin = args[3:5]
+        return N * (2 * POINT_BYTES + SCALAR_BYTES), ladder_muls(N, 1, nwin)
+    raise ValueError(f"no work model for {name}")
+
+
+def bound(calls) -> tuple:
+    """(bound_ms, bound_by) of a sequence of (name, args) launches: the sum
+    of each launch's bound, and whether bytes or operations weigh more."""
+    total = t_bytes = t_ops = 0.0
+    for name, args in calls:
+        nbytes, muls = launch_work(name, args)
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = muls * FE_MUL_MADS / INT_MADS_PER_S * 1e3
+        total += max(tb, to)
+        t_bytes += tb
+        t_ops += to
+    return total, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Within the block, every kernels.launch call is also appended, as
+    (name, args), to the list this yields."""
+    from . import kernels
+
+    calls = []
+    launch = kernels.launch
+
+    def recording(name, *args, device):
+        calls.append((name, args))
+        launch(name, *args, device=device)
+
+    kernels.launch = recording
+    try:
+        yield calls
+    finally:
+        kernels.launch = launch

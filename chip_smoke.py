@@ -6,7 +6,8 @@ Phases (any failure exits nonzero before the final line):
      card's name and power limit (nvidia-smi);
   2. hold K1 (Montgomery multiply), K2 (joint ladder) and K3 (grouped point
      sum) against their plain PyTorch versions on the card, at the shapes
-     of the verify batch below, and time both;
+     of the verify batch below (K2 at J = 8 on 1,249 groups, K3 over
+     1 × 1,249 points), and time both;
   3. build PublicKey.new(n·m) and its fixed-base tables on the card, then
      hold K4 (fixed-base lookup) against its plain version on those tables
      (unsigned) and on a smaller signed table;
@@ -17,8 +18,13 @@ Phases (any failure exits nonzero before the final line):
   5. the same batch with one scalar of one proof changed must reject;
   6. single verify (K = 1) of one fixture proof must accept; the exponent
      vectors of two proofs must equal those of the plain (CPU) path;
-  7. hold K5 (per-lane ladder) against its plain version at the prover's
-     shape (256 lanes, 253 bits, with a zero scalar and the identity);
+  7. hold the prover's kernels against their plain versions at its shapes:
+     K5 (per-lane ladder; 256 lanes, 253 bits, with a zero scalar and the
+     identity), K2 at J = 2 on 262,144 groups (round 0's generator fold)
+     and at J = 4 on 131,584 groups (round 0's L/R, zero-scalar identity
+     padding included), K3 over 512 × 257 points (L/R's sums) and
+     256 × 1,025 points (the bit commitments), on the key's generators
+     with seeded random scalars and bits;
   8. rebuild the fixture's 16 witnesses, commit them (each commitment must
      equal the fixture's bytes) and batch-prove them on the card: every
      proof must equal the committed golden-made bytes;
@@ -28,8 +34,9 @@ Phases (any failure exits nonzero before the final line):
      run; then batch-verify the proven batch (accept) and a tampered copy
      (reject);
  10. prove and verify one m = 1 statement at n = 64;
- 11. print the batch timings, the kernels' JSON line (time, plain time,
-     bound and launches of each kernel), the card, and the device line last.
+ 11. print the batch timings, the kernels' JSON line (one row for each
+     kernel and shape held above: time, plain time, bound and launches),
+     the card, and the device line last.
 
 Usage: python3 chip_smoke.py [--seed S]
 """
@@ -51,18 +58,6 @@ FIXTURE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "data",
 K_BATCH = 256
 DEVICE = "cuda:0"
 
-# Least time for a kernel's work (its roofline bound): the larger of its
-# bytes (each input read once, each output written once) over the H100
-# SXM's 3.35 TB/s, and its integer multiply-adds over the card's int32 rate.
-# NVIDIA's data sheet gives 67 TFLOP/s in float32, i.e. 33.5 T FMA/s on 128
-# lanes an SM; the int32 multiply pipe has 64, so 16.75 T multiply-adds/s.
-# A 32×32→64 product counts as two (low and high word); a CIOS Montgomery
-# product of 8 words has 128 of them and 8 low products; a point add has 9
-# Montgomery products, a doubling 8. Adds, subtracts and selects are free.
-HBM_BYTES_PER_S = 3.35e12
-INT_MADS_PER_S = 16.75e12
-FE_MUL_MADS = 8 * (16 * 2 + 1)
-ADD_MULS, DBL_MULS = 9, 8
 
 
 def log(msg: str) -> None:
@@ -98,24 +93,59 @@ def int_err(xs, ys) -> int:
     return max((abs(a - b) for a, b in zip(xs, ys)), default=0)
 
 
-def bound(nbytes: int, fe_muls: int):
-    """(bound_ms, bound_by) for `nbytes` of traffic and `fe_muls` products."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = fe_muls * FE_MUL_MADS / INT_MADS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def ladder_muls(groups: int, jway: int, nwin: int) -> int:
-    """Montgomery products of `groups` J-way windowed ladders (tables by 14
-    adds each, then nwin windows of 4 doublings and J adds)."""
-    return groups * (jway * 14 * ADD_MULS + nwin * (4 * DBL_MULS + jway * ADD_MULS))
-
-
 def affine_ints(curve, pts) -> list:
     out = []
     for A in curve.decode_points(pts):
         out += [0, 1] if A is None else list(A)
     return out
+
+
+def affine_err(curve):
+    """Error of two point tensors compared as affine points (K3 and K4 may
+    sum in another order than their plain versions)."""
+    return lambda ker, ref: int_err(affine_ints(curve, ker), affine_ints(curve, ref))
+
+
+def coord_err(field):
+    """Error of two point tensors compared coordinate by coordinate (K2 and
+    K5 follow their plain versions' operation order exactly). Compares on
+    the card and decodes only the coordinates that differ."""
+    def err(ker, ref):
+        bad = (ker != ref).any(-1).reshape(-1)
+        if not bool(bad.any()):
+            return 0
+        return int_err(field.decode_plain(ker.reshape(-1, 8)[bad]),
+                       field.decode_plain(ref.reshape(-1, 8)[bad]))
+    return err
+
+
+def hold(held: dict, key, kernel, plain, err_of, reps: int):
+    """Hold one kernel call against its plain version on the same inputs;
+    fail if they differ. Records held[key] = (max_abs_err, kernel ms, plain
+    ms, (bound_ms, bound_by)), the bound being that of the launches the call
+    made, and returns the kernel's output."""
+    from bulletproofsplus_tpu_torch import roofline
+
+    with roofline.recorded_launches() as calls:
+        ker = kernel()
+    ref, plain_ms = once_ms(plain)
+    err = err_of(ker, ref)
+    ms = cuda_ms(kernel, reps)
+    held[key] = (err, ms, plain_ms, roofline.bound(calls))
+    log(f"{key[0]} at {key[1]}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {held[key][3][0]:.4f} ms")
+    if err != 0:
+        raise AssertionError(f"{key[0]} at {key[1]} disagrees with its plain version "
+                             f"(err {err})")
+    return ker
+
+
+def random_scalars(count: int, gen, device):
+    """count seeded plain-form scalars below 2^252 (< the group order)."""
+    s = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32,
+                      generator=gen, device=device)
+    s[:, 7] &= 0x0FFFFFFF
+    return s
 
 
 def random_points(count: int, seed: int, device):
@@ -195,40 +225,28 @@ def main() -> int:
     J = joint_width(var_lanes)
     G = -(-var_lanes // J)
     nbits = fn.order_bits
-    nwin = -(-nbits // 4)
 
     # -- 2. K1, K2, K3 against their plain versions -------------------------
+    # held[(kernel, shape)] = (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
+    held = {}
     N1 = K_BATCH * mn
     a = fn.encode([rnd.randrange(fn.p) for _ in range(N1)], dev)
     b = fn.encode([rnd.randrange(fn.p) for _ in range(N1)], dev)
-    ker = mont_mul(a, b, fn.spec)
-    ref, plain_ms = once_ms(lambda: mont_mul_plain(a, b, fn.spec))
-    err = int_err(fn.decode(ker), fn.decode(ref))
-    ms = cuda_ms(lambda: mont_mul(a, b, fn.spec), 20)
-    results["K1"] = (err, ms, plain_ms, bound(N1 * 96, N1))
-    log(f"K1 mont_mul N={N1}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    hold(held, ("K1", f"{N1} elements"),
+         lambda: mont_mul(a, b, fn.spec), lambda: mont_mul_plain(a, b, fn.spec),
+         lambda ker, ref: int_err(fn.decode(ker), fn.decode(ref)), 20)
 
-    pts = random_points(G * J, rnd.randrange(1 << 30), dev).reshape(G, J, 4, 8)
-    scal = fn.encode_plain([rnd.randrange(fn.p) for _ in range(G * J)], dev).reshape(G, J, 8)
-    flat_s, flat_p = scal.reshape(G * J, 8), pts.reshape(G * J, 4, 8)
-    ker = cc.joint_ladder_msm_grouped(curve, flat_s, flat_p, nbits, J)   # (G, 4, 8)
-    ref, plain_ms = once_ms(lambda: cc.joint_ladder_plain(curve, scal, pts, nbits))
-    err = int_err(fp.decode_plain(ker), fp.decode_plain(ref))
-    ms = cuda_ms(lambda: cc.joint_ladder_msm_grouped(curve, flat_s, flat_p, nbits, J), 3)
-    results["K2"] = (err, ms, plain_ms,
-                     bound(G * J * 160 + G * 128, ladder_muls(G, J, nwin)))
-    log(f"K2 joint ladder G={G} J={J}: err {err}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-
+    pts = random_points(G * J, rnd.randrange(1 << 30), dev)
+    scal = fn.encode_plain([rnd.randrange(fn.p) for _ in range(G * J)], dev)
+    ker = hold(held, ("K2", f"J={J}, {G} groups"),
+               lambda: cc.joint_ladder_msm_grouped(curve, scal, pts, nbits, J),
+               lambda: cc.joint_ladder_plain(curve, scal.reshape(G, J, 8),
+                                             pts.reshape(G, J, 4, 8), nbits),
+               coord_err(fp), 3)
     grp = ker[None]                                   # (1, G, 4, 8): the MSM's sum
-    ker3 = cc.sum_points_grouped(curve, grp)
-    ref3, plain_ms = once_ms(lambda: cc.sum_points_plain(curve, grp))
-    err = int_err(affine_ints(curve, ker3), affine_ints(curve, ref3))
-    multi = random_points(5 * 300, 7, dev).reshape(5, 300, 4, 8)
-    err = max(err, int_err(affine_ints(curve, cc.sum_points_grouped(curve, multi)),
-                           affine_ints(curve, cc.sum_points_plain(curve, multi))))
-    ms = cuda_ms(lambda: cc.sum_points_grouped(curve, grp), 20)
-    results["K3"] = (err, ms, plain_ms, bound(G * 128 + 128, (G - 1) * ADD_MULS))
-    log(f"K3 sum_points W={G}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    hold(held, ("K3", f"1 x {G} points"),
+         lambda: cc.sum_points_grouped(curve, grp), lambda: cc.sum_points_plain(curve, grp),
+         affine_err(curve), 20)
 
     # -- 3. public key, tables, K4 -----------------------------------------
     t = time.time()
@@ -239,26 +257,20 @@ def main() -> int:
         f"({tables.numel() * 4 / 1e6:.0f} MB) in {time.time() - t:.1f} s")
     gen_s = fn.encode_plain([rnd.randrange(fn.p) for _ in range(2 * mn)], dev)
     dig = cc.fixed_digits(curve, gen_s, nbits, signed=False)
-    ker4 = cc.fixed_lookup_partials(curve, tables, dig, False)
-    ref4, plain_ms = once_ms(lambda: cc.fixed_lookup_plain(curve, tables, dig, False))
-    err = int_err(affine_ints(curve, cc.sum_points_plain(curve, ker4[None])),
-                  affine_ints(curve, ref4))
+    hold(held, ("K4", f"{dig.numel()} lanes"),
+         lambda: cc.fixed_lookup_partials(curve, tables, dig, False),
+         lambda: cc.fixed_lookup_plain(curve, tables, dig, False),
+         lambda ker, ref: affine_err(curve)(cc.sum_points_plain(curve, ker[None]), ref), 20)
     small = random_points(32, 11, dev)
     stab = precompute_tables_signed(curve, small)
     sdig = cc.fixed_digits(curve, gen_s[:32], nbits, signed=True)
-    err = max(err, int_err(
+    signed_err = int_err(
         affine_ints(curve, cc.sum_points_plain(
             curve, cc.fixed_lookup_partials(curve, stab, sdig, True)[None])),
-        affine_ints(curve, cc.fixed_lookup_plain(curve, stab, sdig, True))))
-    ms = cuda_ms(lambda: cc.fixed_lookup_partials(curve, tables, dig, False), 20)
-    lanes = dig.numel()
-    results["K4"] = (err, ms, plain_ms,
-                     bound(lanes * 132 + ker4.shape[0] * 128, lanes * ADD_MULS))
-    log(f"K4 fixed lookup lanes={dig.numel()}: err {err}, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.1f} ms")
-    for name, (err, *_) in results.items():
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version (err {err})")
+        affine_ints(curve, cc.fixed_lookup_plain(curve, stab, sdig, True)))
+    if signed_err:
+        raise AssertionError(f"K4 (signed table) disagrees with its plain version "
+                             f"(err {signed_err})")
 
     # -- 4. batch verify K = 256 -------------------------------------------
     t = time.time()
@@ -332,19 +344,60 @@ def main() -> int:
             raise AssertionError("device exponent vectors differ from the plain path")
     log("exponent vectors (K=2) equal on card and CPU")
 
-    # -- 7. K5 against its plain version at the prover's shape --------------
+    # -- 7. the prover's kernels at its shapes ------------------------------
     pts5 = random_points(K_BATCH, rnd.randrange(1 << 30), dev)
     pts5[1] = curve.identity(dev)
     s5 = fn.encode_plain([0] + [rnd.randrange(fn.p) for _ in range(K_BATCH - 1)], dev)
-    ker5 = cc.ladder_scalar_mul(curve, s5, pts5, nbits)
-    ref5, plain_ms = once_ms(lambda: cc.ladder_plain(curve, s5, pts5, nbits))
-    err = int_err(fp.decode_plain(ker5), fp.decode_plain(ref5))
-    ms = cuda_ms(lambda: cc.ladder_scalar_mul(curve, s5, pts5, nbits), 20)
-    results["K5"] = (err, ms, plain_ms,
-                     bound(K_BATCH * (128 + 32 + 128), ladder_muls(K_BATCH, 1, nwin)))
-    log(f"K5 ladder lanes={K_BATCH}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
-    if err != 0:
-        raise AssertionError(f"K5 disagrees with its plain version (err {err})")
+    h_alpha = hold(held, ("K5", f"{K_BATCH} lanes, {nbits} bits"),
+                   lambda: cc.ladder_scalar_mul(curve, s5, pts5, nbits),
+                   lambda: cc.ladder_plain(curve, s5, pts5, nbits), coord_err(fp), 20)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    half = mn // 2
+    Gv, Hv = pk.G_vec, pk.H_vec
+    # round 0's fold: (G1_i, G2_i) and (H1_i, H2_i) pairs of every proof
+    fold_p = torch.cat([torch.stack([Gv[:half], Gv[half:]], 1),
+                        torch.stack([Hv[:half], Hv[half:]], 1)])
+    fold_p = fold_p.expand(K_BATCH, *fold_p.shape).reshape(-1, 4, 8).clone()
+    fold_p[3] = curve.identity(dev)
+    fold_s = random_scalars(fold_p.shape[0], gen, dev)
+    fold_s[:2] = 0
+    Gf = fold_p.shape[0] // 2
+    hold(held, ("K2", f"J=2, {Gf} groups"),
+         lambda: cc.joint_ladder_msm_grouped(curve, fold_s, fold_p, nbits, 2),
+         lambda: cc.joint_ladder_plain(curve, fold_s.reshape(Gf, 2, 8),
+                                       fold_p.reshape(Gf, 2, 4, 8), nbits),
+         coord_err(fp), 3)
+
+    # round 0's L and R rows: [G2 ‖ H1 ‖ g ‖ h] and [G1 ‖ H2 ‖ g ‖ h], padded
+    # to a multiple of 4 with identity points and zero scalars
+    W = 2 * half + 2
+    Wp = -(-W // 4) * 4
+    pad = curve.identity_like((Wp - W,), dev)
+    gh = torch.stack([pk.g, pk.h])
+    lr_p = torch.stack([torch.cat([Gv[half:], Hv[:half], gh, pad]),
+                        torch.cat([Gv[:half], Hv[half:], gh, pad])])
+    lr_p = lr_p.expand(K_BATCH, *lr_p.shape).reshape(-1, 4, 8)
+    lr_s = random_scalars(lr_p.shape[0], gen, dev)
+    lr_s.view(K_BATCH, 2, Wp, 8)[:, :, W:] = 0
+    Gl = lr_p.shape[0] // 4
+    lr = hold(held, ("K2", f"J=4, {Gl} groups"),
+              lambda: cc.joint_ladder_msm_grouped(curve, lr_s, lr_p, nbits, 4),
+              lambda: cc.joint_ladder_plain(curve, lr_s.reshape(Gl, 4, 8),
+                                            lr_p.reshape(Gl, 4, 4, 8), nbits),
+              coord_err(fp), 3)
+    lr = lr.reshape(2 * K_BATCH, Wp // 4, 4, 8)
+    hold(held, ("K3", f"{lr.shape[0]} x {lr.shape[1]} points"),
+         lambda: cc.sum_points_grouped(curve, lr), lambda: cc.sum_points_plain(curve, lr),
+         affine_err(curve), 20)
+
+    # the bit commitments' points: h·α_k ‖ select(bits, G, −H)
+    bits = torch.randint(0, 2, (K_BATCH, mn), generator=gen, device=dev).bool()
+    bc = torch.cat([h_alpha[:, None], curve.select(bits, Gv, curve.neg(Hv))], dim=1)
+    hold(held, ("K3", f"{bc.shape[0]} x {bc.shape[1]} points"),
+         lambda: cc.sum_points_grouped(curve, bc), lambda: cc.sum_points_plain(curve, bc),
+         affine_err(curve), 20)
 
     # -- 8. the fixture's statements, proven on the card ----------------------
     t = time.time()
@@ -422,10 +475,10 @@ def main() -> int:
                "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
                "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
     report = []
-    for k, (name, src, tpu) in sources.items():
-        err, ms, plain_ms, (bound_ms, bound_by) = results[k]
+    for (k, shape), (err, ms, plain_ms, (bound_ms, bound_by)) in held.items():
+        name, src, tpu = sources[k]
         report.append({
-            "name": f"{k} {name}", "route": "cuda",
+            "name": f"{k} {name} ({shape})", "route": "cuda",
             "source": f"bulletproofsplus_tpu_torch/csrc/{src}",
             "replaces": f"bulletproofsplus_tpu/{tpu}",
             "launches": launches[k] + prove_launches[k],

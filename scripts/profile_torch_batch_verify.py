@@ -11,11 +11,12 @@ bpp::fixed_msm, bpp::identity_check; protocol/batchprove.py and wip.py:
 bpp::bit_commitment, bpp::prove_setup, bpp::fold_round summed over the
 rounds, bpp::final_ab), its host wall time and the device time of the
 kernels it launched; the device busy share of the whole run; the top
-kernels by device time; launch counts; the least time (chip_smoke.bound)
-of every hand-written kernel's launches in the profiled run, from the
-sizes each launch was given; and the wall times of the 3 unprofiled warm
+kernels by device time; launch counts; the least time
+(bulletproofsplus_tpu_torch/roofline.py) of every hand-written kernel's
+launches in the profiled run, from the sizes each launch was given; and the wall times of the 3 unprofiled warm
 runs (the first includes first-use set-up). Writes the Chrome trace to
---trace.
+--trace, by default bulletproofsplus_tpu_torch/build/profile_trace.json
+(git-ignored) in the checkout.
 
 Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove] [--trace PATH]
 """
@@ -53,43 +54,21 @@ def union_us(intervals):
     return total
 
 
-def launch_bound_ms(name: str, args) -> float:
-    """chip_smoke.bound of one C-entry launch, from its size arguments."""
-    from chip_smoke import ADD_MULS, bound, ladder_muls
-
-    if name == "bpp_mont_mul":
-        n = args[3]
-        work = (n * 96, n)
-    elif name == "bpp_joint_ladder":
-        G, J, nwin = args[3:6]
-        work = (G * J * 160 + G * 128, ladder_muls(G, J, nwin))
-    elif name == "bpp_sum_points":
-        G, W = args[2:4]
-        work = (G * W * 128 + G * 128, G * (W - 1) * ADD_MULS)
-    elif name == "bpp_fixed_lookup":
-        lanes, nblocks = args[3], args[5]
-        work = (lanes * 132 + nblocks * 128, lanes * ADD_MULS)
-    elif name == "bpp_ladder":
-        N, nwin = args[3:5]
-        work = (N * 288, ladder_muls(N, 1, nwin))
-    else:
-        raise ValueError(f"no bound for {name}")
-    return bound(*work)[0]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("K", type=int, nargs="?", default=256)
     ap.add_argument("--prove", action="store_true",
                     help="profile batch_prove instead of batch_verify")
-    ap.add_argument("--trace", default="profile_batch_verify.json",
-                    help="where to write the Chrome trace")
+    ap.add_argument("--trace", default=os.path.join(ROOT, "bulletproofsplus_tpu_torch",
+                                                    "build", "profile_trace.json"),
+                    help="where to write the Chrome trace (default: the "
+                         "git-ignored build directory of the checkout)")
     args = ap.parse_args()
     K = args.K
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from bulletproofsplus_tpu_torch import kernels as kern
+    from bulletproofsplus_tpu_torch import roofline
     from bulletproofsplus_tpu_torch import (
         DeterministicRng,
         DeterministicTranscript,
@@ -135,14 +114,6 @@ def main() -> int:
             batch_verify(curve, pk, n, batch, V, [DeterministicTranscript(m)] * K,
                          rng=lambda: rnd.getrandbits(128))
 
-    calls = []
-    launch = kern.launch
-
-    def recording(name, *a, device):
-        calls.append((name, a))
-        launch(name, *a, device=device)
-
-    kern.launch = recording
     warm_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -150,8 +121,8 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         warm_ms.append((time.perf_counter() - t0) * 1e3)
-    calls.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with roofline.recorded_launches() as calls, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -178,10 +149,9 @@ def main() -> int:
             "launches": len(mine),
         }
     bounds = {}
-    for name, a in calls:
-        b = bounds.setdefault(name, {"launches": 0, "bound_ms": 0.0})
-        b["launches"] += 1
-        b["bound_ms"] += launch_bound_ms(name, a)
+    for name in sorted({name for name, _ in calls}):
+        mine = [c for c in calls if c[0] == name]
+        bounds[name] = {"launches": len(mine), "bound_ms": roofline.bound(mine)[0]}
     by_name = {}
     for e in kernels:
         d = by_name.setdefault(e["name"][:80], [0, 0.0])

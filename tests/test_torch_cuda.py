@@ -123,22 +123,42 @@ def test_k5_kernel_matches_plain(dev):
     assert torch.equal(got, cc.ladder_plain(c, s, P, 253))
 
 
+def fixture_provers(pk, n, m, count):
+    """The first `count` fixture witnesses (scripts/make_torch_fixtures.py:45-48)."""
+    provers = []
+    for k in range(count):
+        wit = random.Random(1000 + k)
+        p = bt.RangeProver()
+        for _ in range(m):
+            p.commit(pk, wit.randrange(1 << n), wit.randrange(1, bt.curve_ops().fn.p))
+        provers.append(p)
+    return provers
+
+
 def test_batch_prove_on_card_equals_fixture(dev):
-    """Two fixture witnesses (scripts/make_torch_fixtures.py:45-48), proven on
-    the card, give the committed golden-made bytes."""
+    """Two fixture witnesses, proven on the card, give the committed
+    golden-made bytes."""
     c = bt.curve_ops()
     with open(FIXTURE, "rb") as f:
         n, m, rows = serialize.read_fixture(f.read())
     pk = bt.PublicKey.new(c, n * m, dev)
-    provers = []
-    for k in range(2):
-        wit = random.Random(1000 + k)
-        p = bt.RangeProver()
-        for _ in range(m):
-            p.commit(pk, wit.randrange(1 << n), wit.randrange(1, c.fn.p))
-        provers.append(p)
+    provers = fixture_provers(pk, n, m, 2)
     batch = bt.batch_prove(c, pk, n, provers, [bt.DeterministicTranscript(m)] * 2,
                            [bt.DeterministicRng(m)] * 2)
     assert batch.A.device.type == "cuda"
     assert [serialize.proof_to_bytes(c, batch[k]) for k in range(2)] == [
         wire for _, wire in rows[:2]]
+
+
+def test_prove_on_card_equals_fixture(dev):
+    """`prove`, the K = 1 batch, on the card: the first fixture statement's
+    bytes, and its own verify accepts."""
+    c = bt.curve_ops()
+    with open(FIXTURE, "rb") as f:
+        n, m, rows = serialize.read_fixture(f.read())
+    pk = bt.PublicKey.new(c, n * m, dev)
+    (prover,) = fixture_provers(pk, n, m, 1)
+    proof = bt.prove(c, pk, n, prover, bt.DeterministicTranscript(m), bt.DeterministicRng(m))
+    assert serialize.proof_to_bytes(c, proof) == rows[0][1]
+    bt.verify(c, proof, pk, n, torch.stack(prover.commitment_vec),
+              bt.DeterministicTranscript(m))

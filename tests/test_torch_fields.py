@@ -18,7 +18,14 @@ from bulletproofsplus_tpu.fields import ALL_SPECS, field_ops
 from bulletproofsplus_tpu.fields.pallas_ops import mont_mul as pallas_mont_mul
 from bulletproofsplus_tpu_torch import convert
 from bulletproofsplus_tpu_torch.curves import curve_ops
-from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
+from bulletproofsplus_tpu_torch.fields.mont_mul import (
+    _norm16,
+    _resolve,
+    carry32,
+    mont_mul,
+    mont_mul_plain,
+)
+from bulletproofsplus_tpu_torch.fields.spec import int_to_words
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ["fp", "fn"]
@@ -98,6 +105,74 @@ def test_k1_plain_matches_pallas_interpret(name):
     assert f.decode(got) == want == [x * y % p for x, y in zip(xs, ys)]
     assert torch.equal(got, mont_mul_plain(f.encode(xs), f.encode(ys), f.spec))
     assert mont_mul.launches == before  # CPU tensors never launch the kernel
+
+
+def carry_patterns(p):
+    """256-bit values whose word-wise sums and differences carry or borrow
+    through long runs: all-ones and all-zero words, single-word holes,
+    p − 1, p and 2^256 − 1, alternating words, and a few random values."""
+    top = (1 << 256) - 1
+    out = [0, 1, 2, top, top - 1, p - 1, p, p + 1, 1 << 255, (1 << 255) - 1,
+           int("FFFFFFFF00000000" * 4, 16), int("00000000FFFFFFFF" * 4, 16)]
+    out += [top ^ (0xFFFFFFFF << (32 * i)) for i in range(8)]    # one zero word
+    out += [1 << (32 * i) for i in range(8)]                      # one set word
+    return out + rand_ints(11, 4, 1 << 256)
+
+
+@pytest.mark.parametrize("which", FIELDS)
+def test_carry32_on_carry_runs(which):
+    """Every pair of patterns, summed and subtracted limb by limb, against
+    Python ints mod 2^256 with the carry (1) or borrow (−1) out."""
+    vals = carry_patterns(pair(which)[0].p)
+    xs = [x for x in vals for _ in vals]
+    ys = [y for _ in vals for y in vals]
+    a = torch.tensor([int_to_words(x) for x in xs], dtype=torch.int64)
+    b = torch.tensor([int_to_words(y) for y in ys], dtype=torch.int64)
+
+    def ints(limbs):
+        return [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in limbs.tolist()]
+
+    s, c = carry32(a + b)
+    assert ints(s) == [(x + y) % (1 << 256) for x, y in zip(xs, ys)]
+    assert c.tolist() == [(x + y) >> 256 for x, y in zip(xs, ys)]
+    d, bo = carry32(a - b, borrow=True)
+    assert ints(d) == [(x - y) % (1 << 256) for x, y in zip(xs, ys)]
+    assert bo.tolist() == [-1 if x < y else 0 for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("bits", [37, 56, 63])
+def test_norm16_on_carry_runs(bits):
+    """Columns up to 2^bits − 1 (2^63 − 1 is the most an int64 holds), and
+    runs of 2^16 − 1 that a single carry ripples through, against Python
+    ints."""
+    L = 33
+    hi, ones = (1 << bits) - 1, 0xFFFF
+    rows = [[hi] * L, [ones] * L, [ones] * (L - 1) + [0], [0] * L,
+            [1 << 16] + [ones] * (L - 1), [ones] * (L - 1) + [hi],
+            [hi] + [ones] * (L - 1), [hi if i % 2 else 0 for i in range(L)]]
+    rng = np.random.default_rng(12)
+    rows += [[int(x) for x in rng.integers(0, hi, size=L, dtype=np.int64, endpoint=True)]
+             for _ in range(4)]
+    got = _norm16(torch.tensor(rows, dtype=torch.int64))
+    for row, limbs in zip(rows, got.tolist()):
+        want = sum(v << (16 * i) for i, v in enumerate(row)) % (1 << (16 * L))
+        assert limbs == [(want >> (16 * i)) & 0xFFFF for i in range(L)]
+    with pytest.raises(AssertionError):
+        _resolve(torch.zeros(1, 63, dtype=torch.bool), torch.zeros(1, 63, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("which", FIELDS)
+def test_mont_mul_plain_on_carry_runs(which):
+    """K1's plain version on the carry patterns reduced mod p (p − 1, long
+    one and zero runs) against a·b·2^−256 mod p."""
+    f = pair(which)[0]
+    p = f.p
+    vals = sorted({v % p for v in carry_patterns(p)} | {p - 1, p - 2, (1 << 256) % p})
+    xs = [x for x in vals for _ in vals]
+    ys = [y for _ in vals for y in vals]
+    got = mont_mul_plain(f.encode_plain(xs), f.encode_plain(ys), f.spec)
+    rinv = pow(1 << 256, -1, p)
+    assert f.decode_plain(got) == [x * y * rinv % p for x, y in zip(xs, ys)]
 
 
 def test_k1_broadcasts_like_pallas_wrapper():

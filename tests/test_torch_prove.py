@@ -9,10 +9,13 @@ deterministic mode, accepted by the port's `batch_verify` and rejected once
 tampered. Every comparison is exact: canonical integers or wire bytes.
 
 JAX `prove` runs eagerly on the CPU and takes about a minute for one
-m = 1 statement (more for m = 2), so it is compared once, at m = 1; golden,
-whose bytes the JAX package's own tests hold equal to JAX's, is compared on
-every statement."""
+m = 1 statement (more for m = 2), so it is compared once, on the first
+statement of the m = 1 batch; golden, whose bytes the JAX package's own
+tests hold equal to JAX's, is compared on every statement. Each batch is
+proven once per module. `prove` is the K = 1 batch: here its delegation is
+checked, and tests/test_torch_cuda.py proves with it on the card."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -56,11 +59,33 @@ from bulletproofsplus_tpu_torch.protocol.range import (
 N = 8
 K = 2
 CPU = "cpu"
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "bulletproofsplus_tpu_torch", "data", "ed25519_n64_m16_det.bin")
 
 
 @pytest.fixture(scope="module")
 def env():
     return bt.curve_ops(), jax_curve_ops("edwards25519"), CURVES["edwards25519"]
+
+
+@pytest.fixture(scope="module")
+def proven_for(env):
+    """m → (m, port pk, port provers, port ProofBatch, golden wire bytes,
+    witness rows), each batch proven once for the module."""
+    c, jc, gc = env
+    cache = {}
+
+    def get(m):
+        if m not in cache:
+            rows = witnesses(m, 40 + m)
+            pk = bt.PublicKey.new(c, N * m, CPU)
+            provers = port_provers(pk, rows)
+            batch = bt.batch_prove(c, pk, N, provers, [bt.DeterministicTranscript(m)] * K,
+                                   [bt.DeterministicRng(m)] * K)
+            cache[m] = m, pk, provers, batch, golden_wire(jc, gc, m, rows), rows
+        return cache[m]
+
+    return get
 
 
 def witnesses(m, seed):
@@ -94,17 +119,9 @@ def port_provers(pk, rows):
     return provers
 
 
-@pytest.fixture(scope="module", params=[2, 1], ids=["m2", "m1"])
-def proven(request, env):
-    """(m, port pk, port provers, port ProofBatch, golden wire bytes)."""
-    c, jc, gc = env
-    m = request.param
-    rows = witnesses(m, 40 + m)
-    pk = bt.PublicKey.new(c, N * m, CPU)
-    provers = port_provers(pk, rows)
-    batch = bt.batch_prove(c, pk, N, provers, [bt.DeterministicTranscript(m)] * K,
-                           [bt.DeterministicRng(m)] * K)
-    return m, pk, provers, batch, golden_wire(jc, gc, m, rows)
+@pytest.fixture(params=[2, 1], ids=["m2", "m1"])
+def proven(request, proven_for):
+    return proven_for(request.param)
 
 
 def test_k5_plain_matches_pallas_ladder(env):
@@ -128,16 +145,13 @@ def test_k5_plain_matches_pallas_ladder(env):
 
 
 def test_k5_plain_matches_golden_full_width(env):
-    """253-bit scalars (the bit commitment's width) on a few lanes; K5's
-    plain version is K2's at J = 1, limb for limb."""
+    """253-bit scalars (the bit commitment's width) on a few lanes."""
     c, _, gc = env
     rng = np.random.default_rng(6)
     ks = [int.from_bytes(rng.bytes(32), "little") % gc.fn.p for _ in range(3)]
     pts = [gc.mul(gc.base(), 7 + i) for i in range(3)]
-    s, P = c.fn.encode_plain(ks), c.encode_points(pts)
-    got = cc.ladder_scalar_mul(c, s, P, 253)
+    got = cc.ladder_scalar_mul(c, c.fn.encode_plain(ks), c.encode_points(pts), 253)
     assert c.decode_points(got) == [gc.mul(p, k) for k, p in zip(ks, pts)]
-    assert torch.equal(got, cc.joint_ladder_msm_grouped(c, s, P, 253, 1))
 
 
 @pytest.mark.parametrize("m", [1, 2])
@@ -192,14 +206,14 @@ def test_prove_setup_matches_jax(env, m):
 
 def test_batch_prove_matches_golden(env, proven):
     c = env[0]
-    m, pk, provers, batch, wire = proven
+    m, pk, provers, batch, wire, _ = proven
     assert [serialize.proof_to_bytes(c, batch[k]) for k in range(K)] == wire
     assert batch.A.device.type == CPU and batch.rounds == (N * m).bit_length() - 1
 
 
 def test_batch_verify_accepts_proven_batch(env, proven):
     c = env[0]
-    m, pk, provers, batch, _ = proven
+    m, pk, provers, batch, _, _ = proven
     V = bt.stack_commitments([p.commitment_vec for p in provers])
     trs = [bt.DeterministicTranscript(m)] * K
     bt.batch_verify(c, pk, N, batch, V, trs)
@@ -210,22 +224,29 @@ def test_batch_verify_accepts_proven_batch(env, proven):
         bt.batch_verify(c, pk, N, bad, V, trs)
 
 
-def test_prove_matches_jax_and_golden(env):
-    """Single prove (the K = 1 batch) at m = 1: port bytes == JAX bytes ==
-    golden bytes."""
-    c, jc, gc = env
-    (row,) = witnesses(1, 30)[:1]
+def test_prove_matches_jax_and_golden(env, proven_for, monkeypatch):
+    """JAX `prove` of the m = 1 batch's first statement: port bytes == JAX
+    bytes == golden bytes, and the port's single `verify` accepts the port's
+    proof. `prove` hands its statement to `batch_prove` as a batch of one."""
+    c, jc, _ = env
+    m, pk, provers, batch, wire, rows = proven_for(1)
     jpk = JaxPublicKey.new(jc, N)
     jp = JaxRangeProver()
-    for v, g in row:
+    for v, g in rows[0]:
         jp.commit(jpk, v, g)
     want = jax_serialize.proof_to_bytes(jc, jax_prove(jc, jpk, N, jp, JaxDT(1), JaxDR(1)))
-    pk = bt.PublicKey.new(c, N, CPU)
-    (prover,) = port_provers(pk, [row])
-    proof = bt.prove(c, pk, N, prover, bt.DeterministicTranscript(1), bt.DeterministicRng(1))
-    assert serialize.proof_to_bytes(c, proof) == want == golden_wire(jc, gc, 1, [row])[0]
-    bt.verify(c, proof, pk, N, torch.stack(prover.commitment_vec),
+    assert serialize.proof_to_bytes(c, batch[0]) == want == wire[0]
+    bt.verify(c, batch[0], pk, N, torch.stack(provers[0].commitment_vec),
               bt.DeterministicTranscript(1))
+
+    seen = []
+    monkeypatch.setattr(batchprove, "batch_prove", lambda *a: seen.append(a) or ["proof"])
+    t, r = bt.DeterministicTranscript(1), bt.DeterministicRng(1)
+    assert bt.prove(c, pk, N, provers[0], t, r) == "proof"
+    ((curve, key, n, ps, ts, rs),) = seen
+    assert curve is c and key is pk and n == N
+    assert len(ps) == len(ts) == len(rs) == 1
+    assert ps[0] is provers[0] and ts[0] is t and rs[0] is r
 
 
 def test_mixed_aggregation_proves_each_alone(env, monkeypatch):
@@ -297,8 +318,8 @@ def test_entry_points_run_on_the_card_unless_asked():
     """Without a device the entry points place tensors on the CUDA card; on
     a machine without one they raise instead of falling back to the CPU."""
     c = bt.curve_ops()
-    wire = golden_wire(jax_curve_ops("edwards25519"), CURVES["edwards25519"], 1,
-                       witnesses(1, 3)[:1])[0]
+    with open(FIXTURE, "rb") as f:
+        wire = serialize.read_fixture(f.read())[2][0][1]
     jarr = np.zeros((1, 4, 22), np.int32)
     calls = [lambda: bt.PublicKey.new(c, 8).g, lambda: serialize.proof_from_bytes(c, wire).A,
              lambda: convert.points_from_jax(jarr, c)]
