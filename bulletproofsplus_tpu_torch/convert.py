@@ -6,8 +6,10 @@ the port holds 8 × 32-bit limbs with R = 2^256. Nothing here imports jax:
 arrays come in as anything numpy can read (jax arrays included), each
 element is decoded to its canonical integer and re-encoded in the port's
 layout. W defaults to the JAX package's rule: 12 bits for int32 limbs, 24
-for int64. Every helper places its result on `device`, by default the CUDA
-card (pass "cpu" for the CPU).
+for int64. Points keep their coordinate count: 4 (extended Edwards) or 3
+(projective Weierstrass), so the same helpers carry either family. Every
+helper places its result on `device`, by default the CUDA card (pass "cpu"
+for the CPU).
 """
 from __future__ import annotations
 
@@ -53,7 +55,9 @@ def field_from_jax(arr, fops, montgomery: bool = True, limb_bits: int | None = N
 
 
 def points_from_jax(arr, curve, limb_bits: int | None = None, device=None) -> torch.Tensor:
-    """JAX extended points (..., 4, L) → port points (..., 4, 8)."""
+    """JAX points (..., C, L) → port points (..., C, 8), C = curve.COORDS."""
+    if np.shape(arr)[-2] != curve.COORDS:
+        raise ValueError(f"{curve.name} points have {curve.COORDS} coordinates")
     return field_from_jax(arr, curve.fp, True, limb_bits, device)
 
 
@@ -85,7 +89,7 @@ def proof_batch_from_jax(jbatch, curve, device=None) -> ProofBatch:
 
 
 def commitments_from_jax(V, curve, device=None) -> torch.Tensor:
-    """JAX commitments (K, m, 4, L) or (m, 4, L) → port points."""
+    """JAX commitments (K, m, C, L) or (m, C, L) → port points."""
     return points_from_jax(V, curve, device=device)
 
 

@@ -2,9 +2,9 @@
 //
 // The device counterpart of fields/mont_mul.py::mont_mul_plain and
 // fields/ops.py (add/sub/neg): every function takes and returns fully
-// reduced values (< p), generic over the modulus, which the caller passes in
-// a `Mod` (p = 2^255 - 19 for curve coordinates, the group order for
-// scalars). Words are little-endian; a field element in memory is eight
+// reduced values (< p), generic over any odd modulus below 2^256, which the
+// caller passes in a `Mod` (a curve's base field for coordinates, its group
+// order for scalars). Words are little-endian; a field element in memory is eight
 // consecutive uint32 (the int32 bit patterns of the PyTorch tensors).
 #pragma once
 
@@ -45,7 +45,8 @@ __device__ __forceinline__ void fe_reduce_once(uint32_t r[NL], const uint32_t t[
   for (int i = 0; i < NL; ++i) r[i] = ge ? d[i] : t[i];
 }
 
-// r = a + b mod p.  a + b < 2p < 2^256 for the moduli here (p < 2^255).
+// r = a + b mod p.  a + b < 2p may pass 2^256 (secp256k1's moduli lie above
+// 2^255): the carry out of the top word is the top bit fe_reduce_once takes.
 __device__ __forceinline__ void fe_add(uint32_t r[NL], const uint32_t a[NL],
                                        const uint32_t b[NL], const Mod& M) {
   uint32_t s[NL];

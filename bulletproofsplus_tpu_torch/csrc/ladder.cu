@@ -1,23 +1,26 @@
 // K5: per-lane 4-bit fixed-window scalar multiplication, out[i] = s_i·P_i.
 //
 // Replaces bulletproofsplus_tpu/curves/pallas_curve.py::_ladder_call (the
-// pl.pallas_call at :253; wrapper ladder_scalar_mul :436): a 16-entry table
-// 0·P .. 15·P built by repeated adds, then nwin windows MSB first, each four
-// doublings and one table add, with canonical output. The TPU pads lanes to
-// 512-wide blocks; here one thread owns one lane and nothing pads.
+// pl.pallas_call at :253; wrapper ladder_scalar_mul :436), both of its
+// bodies: Edwards (Pt4) and Weierstrass (Pt3) points, one template built
+// once per family (family.cuh). A 16-entry table 0·P .. 15·P built by
+// repeated adds, then nwin windows MSB first, each four doublings and one
+// table add, with canonical output. The TPU pads lanes to 512-wide blocks;
+// here one thread owns one lane and nothing pads.
 //
-// The table lives in dynamic shared memory, 16 × 128 B = 2 KB a thread and
-// 64 KB for a 32-thread block, word-interleaved across the block's threads
-// (word w of entry k of thread t at [(k·32 + w)·32 + t]) so that a warp's 32
-// table reads hit 32 different banks. That keeps it out of the local memory
-// K2 pays for. What bounds it: on the prover's path it runs h·α_k of the bit
-// commitment on K = 256 lanes, 8 blocks on a card of 132 SMs, so it is
-// latency-bound: one chain of 14 + 64·5 = 334 dependent point ops per lane,
-// 8-9 Montgomery products each. The arithmetic is pt_add/pt_dbl of
-// ed25519.cuh in K2's order, so K5 equals K2 at J = 1 limb for limb.
+// The table lives in dynamic shared memory, 16 points a thread: 64 KB for a
+// 32-thread block of Edwards points (128 B), 48 KB of Weierstrass points
+// (96 B), word-interleaved across the block's threads (word w of entry k of
+// thread t at [(k·WORDS + w)·32 + t]) so that a warp's 32 table reads hit 32
+// different banks. That keeps it out of the local memory K2 pays for. What
+// bounds it: on the prover's path it runs h·α_k of the bit commitment on
+// K = 256 lanes, 8 blocks on a card of 132 SMs, so it is latency-bound: one
+// chain of 14 + 64·5 = 334 dependent point ops per lane, 8-14 Montgomery
+// products each. The arithmetic is pt_add/pt_dbl of the family's header in
+// K2's order, so K5 equals K2 at J = 1 limb for limb.
 #include <cuda_runtime.h>
 
-#include "ed25519.cuh"
+#include "family.cuh"
 
 using namespace bpp;
 
@@ -25,39 +28,46 @@ namespace {
 
 constexpr int THREADS = 32;
 constexpr int NENT = 16;
-constexpr int PT_WORDS = 4 * NL;
-constexpr int SMEM_BYTES = NENT * PT_WORDS * THREADS * (int)sizeof(uint32_t);
 
-__device__ __forceinline__ void tbl_store(uint32_t* tbl, int k, const Pt& P) {
-  const uint32_t* w[4] = {P.X, P.Y, P.Z, P.T};
-  uint32_t* base = tbl + k * PT_WORDS * THREADS + threadIdx.x;
+template <class P>
+constexpr int smem_bytes() {
+  return NENT * P::NC * NL * THREADS * (int)sizeof(uint32_t);
+}
+
+template <class P>
+__device__ __forceinline__ void tbl_store(uint32_t* tbl, int k, const P& Q) {
+  uint32_t* base = tbl + k * P::NC * NL * THREADS + threadIdx.x;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < P::NC; ++c) {
+    const uint32_t* w = Q.coord(c);
 #pragma unroll
-    for (int i = 0; i < NL; ++i) base[(c * NL + i) * THREADS] = w[c][i];
+    for (int i = 0; i < NL; ++i) base[(c * NL + i) * THREADS] = w[i];
   }
 }
 
-__device__ __forceinline__ void tbl_load(Pt& P, const uint32_t* tbl, uint32_t k) {
-  uint32_t* w[4] = {P.X, P.Y, P.Z, P.T};
-  const uint32_t* base = tbl + k * PT_WORDS * THREADS + threadIdx.x;
+template <class P>
+__device__ __forceinline__ void tbl_load(P& Q, const uint32_t* tbl, uint32_t k) {
+  const uint32_t* base = tbl + k * P::NC * NL * THREADS + threadIdx.x;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < P::NC; ++c) {
+    uint32_t* w = Q.coord(c);
 #pragma unroll
-    for (int i = 0; i < NL; ++i) w[c][i] = base[(c * NL + i) * THREADS];
+    for (int i = 0; i < NL; ++i) w[i] = base[(c * NL + i) * THREADS];
   }
 }
 
+template <class P>
 __global__ void __launch_bounds__(THREADS)
 ladder_kernel(const uint32_t* __restrict__ pts, const uint32_t* __restrict__ scal,
-              uint32_t* __restrict__ out, long long N, int nwin, EdConsts K) {
+              uint32_t* __restrict__ out, long long N, int nwin, CurveConsts K) {
+  constexpr int WORDS = P::NC * NL;
   extern __shared__ uint32_t tbl[];
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= N) return;  // each thread reads only its own table column: no barrier
-  Pt base, cur, acc;
+  P base, cur, acc;
   pt_identity(acc, K);
   tbl_store(tbl, 0, acc);
-  pt_load(base, pts + i * PT_WORDS);
+  pt_load(base, pts + i * WORDS);
   tbl_store(tbl, 1, base);
   cur = base;
 #pragma unroll 1
@@ -74,21 +84,27 @@ ladder_kernel(const uint32_t* __restrict__ pts, const uint32_t* __restrict__ sca
     tbl_load(cur, tbl, (s[word] >> shift) & 15u);
     pt_add(acc, acc, cur, K);
   }
-  pt_store(out + i * PT_WORDS, acc);
+  pt_store(out + i * WORDS, acc);
+}
+
+template <class P>
+int launch(const void* pts, const void* scal, void* out, long long N, int nwin,
+           const CurveConsts& K, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ladder_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<P>());
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (N + THREADS - 1) / THREADS;
+  ladder_kernel<P><<<(unsigned)blocks, THREADS, smem_bytes<P>(), stream>>>(
+      (const uint32_t*)pts, (const uint32_t*)scal, (uint32_t*)out, N, nwin, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int bpp_ladder(const void* pts, const void* scal, void* out, long long N,
-                          int nwin, const uint32_t* consts, void* stream) {
+extern "C" int BPP_ENTRY(bpp_ladder)(const void* pts, const void* scal, void* out, long long N,
+                                     int nwin, const uint32_t* consts, void* stream) {
   if (nwin < 1 || nwin > 64) return (int)cudaErrorInvalidValue;
-  EdConsts K;
+  CurveConsts K;
   memcpy(&K, consts, sizeof(K));
-  cudaError_t err = cudaFuncSetAttribute(
-      ladder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (N + THREADS - 1) / THREADS;
-  ladder_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const uint32_t*)pts, (const uint32_t*)scal, (uint32_t*)out, N, nwin, K);
-  return (int)cudaGetLastError();
+  return launch<FamilyPt>(pts, scal, out, N, nwin, K, (cudaStream_t)stream);
 }

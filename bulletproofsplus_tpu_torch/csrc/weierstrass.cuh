@@ -1,0 +1,104 @@
+// Projective Weierstrass points (X, Y, Z) with a = 0 over field.cuh:
+// family 1 (secp256k1).
+//
+// The device counterpart of curves/weierstrass.py::WeierstrassOps and of the
+// TPU formulas `_wadd`/`_wdbl` in bulletproofsplus_tpu/curves/
+// pallas_curve.py:77-120: the Renes–Costello–Batina complete formulas
+// (eprint 2015/1060, algorithms 7 and 9 for a = 0), step for step, so kernel
+// and plain version produce identical coordinates when they add in the same
+// order. They are complete on odd-order groups: no case for the identity,
+// doublings or inverses. The identity is (0, 1, 0); a point with Z = 0 is the
+// identity. A point in memory is 24 consecutive uint32 (96 bytes, six 16-byte
+// words): X, Y, Z, Montgomery form, every coordinate < p. CurveConsts::k
+// holds 3b. The formulas keep more values alive than hwcd does (an add holds
+// eight temporaries besides its operands); the build log's ptxas lines show
+// each kernel's registers and spills.
+#pragma once
+
+#include "points.cuh"
+
+namespace bpp {
+
+struct Pt3 {
+  static constexpr int NC = 3;
+  uint32_t X[NL], Y[NL], Z[NL];
+  __device__ __forceinline__ uint32_t* coord(int c) { return c == 0 ? X : c == 1 ? Y : Z; }
+  __device__ __forceinline__ const uint32_t* coord(int c) const {
+    return c == 0 ? X : c == 1 ? Y : Z;
+  }
+};
+
+__device__ __forceinline__ void pt_identity(Pt3& P, const CurveConsts& C) {
+  fe_set_zero(P.X);
+  fe_copy(P.Y, C.one);
+  fe_set_zero(P.Z);
+}
+
+// R = P + Q, RCB algorithm 7 (a = 0), complete: 14 products.  R may alias
+// P or Q (both are read before R is written).
+__device__ __forceinline__ void pt_add(Pt3& R, const Pt3& P, const Pt3& Q, const CurveConsts& K) {
+  const Mod& M = K.fp;
+  uint32_t t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], t5[NL], u[NL], v[NL];
+  fe_mul(t0, P.X, Q.X, M);
+  fe_mul(t1, P.Y, Q.Y, M);
+  fe_mul(t2, P.Z, Q.Z, M);
+  fe_add(u, P.X, P.Y, M);  // t3 = (X1 + Y1)(X2 + Y2) - t0 - t1
+  fe_add(v, Q.X, Q.Y, M);
+  fe_mul(t3, u, v, M);
+  fe_sub(t3, t3, t0, M);
+  fe_sub(t3, t3, t1, M);
+  fe_add(u, P.Y, P.Z, M);  // t4 = (Y1 + Z1)(Y2 + Z2) - t1 - t2
+  fe_add(v, Q.Y, Q.Z, M);
+  fe_mul(t4, u, v, M);
+  fe_sub(t4, t4, t1, M);
+  fe_sub(t4, t4, t2, M);
+  fe_add(u, P.X, P.Z, M);  // t5 = (X1 + Z1)(X2 + Z2) - t0 - t2
+  fe_add(v, Q.X, Q.Z, M);
+  fe_mul(t5, u, v, M);
+  fe_sub(t5, t5, t0, M);
+  fe_sub(t5, t5, t2, M);
+  fe_add(u, t0, t0, M);    // t0 := 3·t0
+  fe_add(t0, u, t0, M);
+  fe_mul(t2, K.k, t2, M);  // t2 := b3·t2
+  fe_mul(t5, K.k, t5, M);  // t5 := b3·t5
+  fe_add(u, t1, t2, M);    // z3c = t1 + b3·t2
+  fe_sub(t1, t1, t2, M);   // t1m = t1 - b3·t2
+  fe_mul(v, t3, t1, M);    // X3 = t3·t1m - t4·t5
+  fe_mul(t2, t4, t5, M);
+  fe_sub(R.X, v, t2, M);
+  fe_mul(v, t1, u, M);     // Y3 = t1m·z3c + t5·3t0
+  fe_mul(t2, t5, t0, M);
+  fe_add(R.Y, v, t2, M);
+  fe_mul(v, u, t4, M);     // Z3 = z3c·t4 + 3t0·t3
+  fe_mul(t2, t0, t3, M);
+  fe_add(R.Z, v, t2, M);
+}
+
+// R = 2P, RCB algorithm 9 (a = 0), complete: 9 products.  R may alias P.
+__device__ __forceinline__ void pt_dbl(Pt3& R, const Pt3& P, const CurveConsts& K) {
+  const Mod& M = K.fp;
+  uint32_t t0[NL], t1[NL], t2[NL], xy[NL], z3[NL], y3[NL];
+  fe_mul(t0, P.Y, P.Y, M);
+  fe_mul(t1, P.Y, P.Z, M);
+  fe_mul(t2, P.Z, P.Z, M);
+  fe_mul(xy, P.X, P.Y, M);
+  fe_add(z3, t0, t0, M);   // z3 = 8·t0
+  fe_add(z3, z3, z3, M);
+  fe_add(z3, z3, z3, M);
+  fe_mul(t2, K.k, t2, M);  // t2b = b3·t2
+  fe_add(y3, t0, t2, M);   // y3c = t0 + t2b
+  fe_mul(R.Z, t1, z3, M);  // Z3 = t1·z3
+  fe_mul(z3, t2, z3, M);   // x3m = t2b·z3
+  fe_add(t1, t2, t2, M);   // t0m = t0 - 3·t2b
+  fe_add(t1, t1, t2, M);
+  fe_sub(t0, t0, t1, M);
+  fe_mul(y3, t0, y3, M);   // Y3 = x3m + t0m·y3c
+  fe_add(R.Y, z3, y3, M);
+  fe_mul(xy, t0, xy, M);   // X3 = 2·t0m·xy
+  fe_add(R.X, xy, xy, M);
+}
+
+// P = -P: (X, -Y, Z).
+__device__ __forceinline__ void pt_neg(Pt3& P, const CurveConsts& K) { fe_neg(P.Y, P.Y, K.fp); }
+
+}  // namespace bpp

@@ -1,4 +1,5 @@
-"""edwards25519 point arithmetic and the point kernels K2–K5."""
+"""Point arithmetic of both families (edwards25519, secp256k1) and the point
+kernels K2–K5."""
 from .instances import CURVE_NAMES, curve_ops
 
 __all__ = ["CURVE_NAMES", "curve_ops"]

@@ -8,82 +8,25 @@ same order, are `pt_add`/`pt_dbl` in csrc/ed25519.cuh.
 """
 from __future__ import annotations
 
-import functools
-from typing import List, Optional, Sequence, Tuple
-
 import torch
 
-from ..fields.ops import FieldOps
-from ..fields.spec import ints_to_tensor, tensor_to_ints
-from . import host
-
-Affine = Optional[Tuple[int, int]]
+from .base import CurveOps
 
 
-class EdwardsOps:
-    """Vectorized point ops over field ops `fp` (coordinates) and `fn`
-    (scalars). `plain` is the same curve over plain field ops."""
+class EdwardsOps(CurveOps):
+    """Extended Edwards points; the kernels' constant is 2d."""
 
-    def __init__(self, fp: FieldOps, fn: FieldOps, d: int, name: str):
-        self.fp = fp
-        self.fn = fn
-        self.d = d
-        self.name = name
-        self.k2d_int = 2 * d % fp.p
-        self._dev: dict = {}
+    COORDS = 4
+    FAMILY = "edwards"
 
-    @functools.cached_property
-    def plain(self) -> "EdwardsOps":
-        if self.fp.is_plain:
-            return self
-        return EdwardsOps(self.fp.plain, self.fn.plain, self.d, self.name)
-
-    def _c(self, device) -> dict:
-        key = str(device)
-        if key not in self._dev:
-            one = self.fp.spec.r_mod_p
-            self._dev[key] = {
-                "k2d": self.fp.encode(self.k2d_int, device),
-                "identity": ints_to_tensor([0, one, one, 0], device),
-            }
-        return self._dev[key]
-
-    # -- host conversions -------------------------------------------------
-
-    def encode_points(self, points: Sequence[Affine], device=None) -> torch.Tensor:
-        """Affine tuples (None = identity) → (N, 4, 8) with Z = 1."""
-        p = self.fp.p
-        vals = []
-        for A in points:
-            x, y = (0, 1) if A is None else A
-            vals += [x, y, 1, x * y % p]
-        return self.fp.encode(vals, device).reshape(-1, 4, self.fp.L)
-
-    def decode_points(self, t: torch.Tensor) -> List[Affine]:
-        """(..., 4, 8) → flat list of affine tuples, one host inversion."""
-        rinv, p = self.fp.spec.rinv, self.fp.p
-        v = [x * rinv % p for x in tensor_to_ints(t)]
-        return host.to_affine([tuple(v[i:i + 4]) for i in range(0, len(v), 4)])
-
-    def decode_point(self, t: torch.Tensor) -> Affine:
-        return self.decode_points(t)[0]
-
-    # -- core ops ---------------------------------------------------------
-
-    def identity(self, device) -> torch.Tensor:
-        return self._c(device)["identity"]
-
-    def identity_like(self, shape_prefix, device) -> torch.Tensor:
-        return self.identity(device).expand(*shape_prefix, 4, self.fp.L)
+    @property
+    def kconst_int(self) -> int:
+        return self.host.k2d
 
     def is_identity(self, P):
         """X = 0 and Y = Z (coordinates are canonical)."""
         return (self.fp.is_zero(P[..., 0, :])
                 & (P[..., 1, :] == P[..., 2, :]).all(dim=-1))
-
-    def select(self, mask, P, Q):
-        return torch.where(torch.as_tensor(mask, device=P.device)[..., None, None],
-                           P, Q)
 
     def neg(self, P):
         f = self.fp
@@ -97,7 +40,7 @@ class EdwardsOps:
         X2, Y2, Z2, T2 = Q.unbind(-2)
         A = f.mul(f.sub(Y1, X1), f.sub(Y2, X2))
         B = f.mul(f.add(Y1, X1), f.add(Y2, X2))
-        C = f.mul(f.mul(T1, T2), self._c(P.device)["k2d"])
+        C = f.mul(f.mul(T1, T2), self._c(P.device)["kconst"])
         D = f.mul(f.add(Z1, Z1), Z2)
         E, F, G, H = f.sub(B, A), f.sub(D, C), f.add(D, C), f.add(B, A)
         return torch.stack([f.mul(E, F), f.mul(G, H), f.mul(F, G),

@@ -1,97 +1,167 @@
-"""edwards25519 on the host, in Python ints: constants, decompression and the
-few group operations that setup and deserialization need.
+"""The port's curves on the host, in Python ints: constants, base points,
+square roots and the few group operations that setup, commitments and
+deserialization need.
 
-Counterpart of bulletproofsplus_tpu/golden/curves.py:287-316 (ED_D, the base
-point, `_ed_recover_x`). The port cannot import golden (the JAX package's
-__init__ imports jax), so it keeps this small copy. Points are affine tuples
-(x, y) with None as the identity; internally extended (X, Y, Z, T) with the
-complete add-2008-hwcd-3 formula, so a scalar multiple costs one inversion.
+Counterpart of bulletproofsplus_tpu/golden/curves.py (secp256k1 :276-285,
+edwards25519 :287-316) and of the square root in
+bulletproofsplus_tpu/protocol/publickey.py:181-195. The port cannot import
+golden (the JAX package's __init__ imports jax), so it keeps this small copy.
+Points are affine tuples (x, y) with None as the identity. Each curve adds
+in complete projective coordinates, the same formulas as its device ops, so
+a scalar multiple costs no inversion and a list of points goes back to
+affine with one shared inversion.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-from ..fields.spec import ED25519_L, ED25519_P
-
-P = ED25519_P
-ED_D = (-121665 * pow(121666, P - 2, P)) % P
-ED_GY = (4 * pow(5, P - 2, P)) % P
-SQRT_M1 = pow(2, (P - 1) // 4, P)
-K2D = 2 * ED_D % P
+from ..fields.spec import ED25519_L, ED25519_P, SECP256K1_N, SECP256K1_P
 
 Affine = Optional[Tuple[int, int]]
 
 
-def recover_x(y: int, sign: int) -> int:
-    """x with -x² + y² = 1 + d·x²·y² and x mod 2 == sign; ValueError if none."""
-    y2 = y * y % P
-    u = (y2 - 1) % P
-    v = (ED_D * y2 + 1) % P
-    x = (u * pow(v, 3, P)) % P * pow((u * pow(v, 7, P)) % P, (P - 5) // 8, P) % P
-    if (v * x * x - u) % P != 0:
-        x = x * SQRT_M1 % P
-    if (v * x * x - u) % P != 0:
-        raise ValueError("not a square")
-    if x % 2 != sign:
-        x = P - x
-    return x
+class HostCurve:
+    """What both families share: double-and-add and the way back to affine.
+    A subclass gives `identity` (projective), `lift` and `add`."""
+
+    name: str
+    p: int
+    order: int
+    identity: tuple
+    base: Tuple[int, int]
+
+    def mul(self, P, k: int):
+        """k·P by double-and-add on the raw k (not reduced mod the order)."""
+        acc = self.identity
+        while k:
+            if k & 1:
+                acc = self.add(acc, P)
+            P = self.add(P, P)
+            k >>= 1
+        return acc
+
+    def is_identity_affine(self, x: int, y: int) -> bool:
+        return False
+
+    def to_affine(self, points: Sequence) -> List[Affine]:
+        """Projective points → affine, one shared inversion (Montgomery
+        trick). A point with Z = 0 (the Weierstrass identity) is None."""
+        p = self.p
+        zs = [pt[2] % p or 1 for pt in points]
+        prefix, acc = [], 1
+        for z in zs:
+            acc = acc * z % p
+            prefix.append(acc)
+        inv = pow(acc, p - 2, p)
+        out: List[Affine] = [None] * len(points)
+        for i in range(len(points) - 1, -1, -1):
+            zi = inv * (prefix[i - 1] if i else 1) % p
+            inv = inv * zs[i] % p
+            if points[i][2] % p == 0:
+                continue
+            x, y = points[i][0] * zi % p, points[i][1] * zi % p
+            out[i] = None if self.is_identity_affine(x, y) else (x, y)
+        return out
 
 
-BASE: Tuple[int, int] = (recover_x(ED_GY, 0), ED_GY)
-IDENTITY_EXT = (0, 1, 1, 0)
+class EdwardsHost(HostCurve):
+    """Twisted Edwards a = -1 (edwards25519) in extended (X, Y, Z, T)
+    coordinates with add-2008-hwcd-3."""
+
+    name = "edwards25519"
+    p = ED25519_P
+    order = ED25519_L
+    identity = (0, 1, 1, 0)
+
+    def __init__(self):
+        P = self.p
+        self.d = (-121665 * pow(121666, P - 2, P)) % P
+        self.k2d = 2 * self.d % P
+        self.sqrt_m1 = pow(2, (P - 1) // 4, P)
+        gy = (4 * pow(5, P - 2, P)) % P
+        self.base = (self.recover_x(gy, 0), gy)
+
+    def recover_x(self, y: int, sign: int) -> int:
+        """x with -x² + y² = 1 + d·x²·y² and x mod 2 == sign; ValueError if none."""
+        P = self.p
+        y2 = y * y % P
+        u = (y2 - 1) % P
+        v = (self.d * y2 + 1) % P
+        x = (u * pow(v, 3, P)) % P * pow((u * pow(v, 7, P)) % P, (P - 5) // 8, P) % P
+        if (v * x * x - u) % P != 0:
+            x = x * self.sqrt_m1 % P
+        if (v * x * x - u) % P != 0:
+            raise ValueError("not a square")
+        if x % 2 != sign:
+            x = P - x
+        return x
+
+    def lift(self, A: Affine):
+        if A is None:
+            return self.identity
+        x, y = A
+        return (x, y, 1, x * y % self.p)
+
+    def add(self, p1, p2):
+        """add-2008-hwcd-3 (a = -1), complete."""
+        P = self.p
+        X1, Y1, Z1, T1 = p1
+        X2, Y2, Z2, T2 = p2
+        a = (Y1 - X1) * (Y2 - X2) % P
+        b = (Y1 + X1) * (Y2 + X2) % P
+        c = T1 * T2 % P * self.k2d % P
+        d = 2 * Z1 * Z2 % P
+        e, f, g, h = b - a, d - c, d + c, b + a
+        return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+    def is_identity_affine(self, x: int, y: int) -> bool:
+        return x == 0 and y == 1
+
+    def in_subgroup(self, A: Affine) -> bool:
+        """Whether A lies in the prime-order subgroup: ℓ·A is the identity."""
+        if A is None:
+            return True
+        X, Y, Z, _ = self.mul(self.lift(A), self.order)
+        return X % self.p == 0 and (Y - Z) % self.p == 0
 
 
-def to_ext(A: Affine):
-    if A is None:
-        return IDENTITY_EXT
-    x, y = A
-    return (x, y, 1, x * y % P)
+class WeierstrassHost(HostCurve):
+    """Short Weierstrass y² = x³ + b (a = 0) in homogeneous projective
+    (X, Y, Z) coordinates with the Renes–Costello–Batina complete addition
+    (eprint 2015/1060 algorithm 7); the identity is (0, 1, 0)."""
+
+    identity = (0, 1, 0)
+
+    def __init__(self, name: str, p: int, order: int, b: int, gx: int, gy: int):
+        self.name, self.p, self.order, self.b = name, p, order, b
+        self.b3 = 3 * b % p
+        self.base = (gx, gy)
+
+    def lift(self, A: Affine):
+        return self.identity if A is None else (A[0], A[1], 1)
+
+    def add(self, p1, p2):
+        """RCB algorithm 7 (a = 0), complete."""
+        P, b3 = self.p, self.b3
+        X1, Y1, Z1 = p1
+        X2, Y2, Z2 = p2
+        t0, t1, t2 = X1 * X2 % P, Y1 * Y2 % P, Z1 * Z2 % P
+        t3 = ((X1 + Y1) * (X2 + Y2) - t0 - t1) % P
+        t4 = ((Y1 + Z1) * (Y2 + Z2) - t1 - t2) % P
+        t5 = ((X1 + Z1) * (X2 + Z2) - t0 - t2) % P
+        t2b, t5b = b3 * t2 % P, b3 * t5 % P
+        z3, t1m = t1 + t2b, t1 - t2b
+        return ((t3 * t1m - t4 * t5b) % P, (t1m * z3 + 3 * t5b * t0) % P,
+                (z3 * t4 + 3 * t0 * t3) % P)
+
+    def sqrt(self, a: int) -> Optional[int]:
+        """A square root of a mod p (p ≡ 3 mod 4), None for a non-residue."""
+        r = pow(a, (self.p + 1) // 4, self.p)
+        return r if r * r % self.p == a % self.p else None
 
 
-def ext_add(p1, p2):
-    """add-2008-hwcd-3 (a = -1), complete."""
-    X1, Y1, Z1, T1 = p1
-    X2, Y2, Z2, T2 = p2
-    a = (Y1 - X1) * (Y2 - X2) % P
-    b = (Y1 + X1) * (Y2 + X2) % P
-    c = T1 * T2 % P * K2D % P
-    d = 2 * Z1 * Z2 % P
-    e, f, g, h = b - a, d - c, d + c, b + a
-    return (e * f % P, g * h % P, f * g % P, e * h % P)
-
-
-def ext_mul(p1, k: int):
-    """k·P by double-and-add on the raw k (not reduced mod ℓ)."""
-    acc = IDENTITY_EXT
-    while k:
-        if k & 1:
-            acc = ext_add(acc, p1)
-        p1 = ext_add(p1, p1)
-        k >>= 1
-    return acc
-
-
-def to_affine(points: Sequence) -> List[Affine]:
-    """Extended points → affine, one shared inversion (Montgomery trick)."""
-    zs = [pt[2] for pt in points]
-    prefix, acc = [], 1
-    for z in zs:
-        acc = acc * z % P
-        prefix.append(acc)
-    inv = pow(acc, P - 2, P)
-    out: List[Affine] = [None] * len(points)
-    for i in range(len(points) - 1, -1, -1):
-        zi = inv * (prefix[i - 1] if i else 1) % P
-        inv = inv * zs[i] % P
-        x, y = points[i][0] * zi % P, points[i][1] * zi % P
-        out[i] = None if (x == 0 and y == 1) else (x, y)
-    return out
-
-
-def in_subgroup(A: Affine) -> bool:
-    """Whether A lies in the prime-order subgroup: ℓ·A is the identity."""
-    if A is None:
-        return True
-    X, Y, Z, _ = ext_mul(to_ext(A), ED25519_L)
-    return X % P == 0 and (Y - Z) % P == 0
-
+ED25519 = EdwardsHost()
+SECP256K1 = WeierstrassHost(
+    "secp256k1", SECP256K1_P, SECP256K1_N, 7,
+    0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798,
+    0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8)

@@ -81,10 +81,14 @@ def carry32(t: torch.Tensor, borrow: bool = False):
     return (low + c_in) & MASK32, c_out
 
 
-def reduce_once(t: torch.Tensor, p64: torch.Tensor) -> torch.Tensor:
-    """Canonical int64 word limbs of a value in [0, 2p) → int32 limbs mod p."""
+def reduce_once(t: torch.Tensor, top: torch.Tensor, p64: torch.Tensor) -> torch.Tensor:
+    """A value top·2^256 + t in [0, 2p), as canonical int64 word limbs t and
+    its top bit (0 or 1; 2p passes 2^256 when p > 2^255) → int32 limbs mod p.
+    The value is at least p when its top bit is set or t − p does not
+    borrow; t − p mod 2^256 is then the result."""
     d, borrow = carry32(t - p64, borrow=True)
-    return i32(torch.where((borrow < 0)[..., None], t, d))
+    keep = (top == 0) & (borrow < 0)
+    return i32(torch.where(keep[..., None], t, d))
 
 
 def _halves(a: torch.Tensor) -> torch.Tensor:
@@ -141,12 +145,14 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
     """Plain PyTorch version of K1: a·b·2^-256 mod p, inputs < p."""
     c = _const(spec, a.device)
     # T = a·b stays in unnormalized columns (< 2^36): its low 16 columns are
-    # still ≡ T mod R, and T + m·p is normalized once at the end
+    # still ≡ T mod R, and T + m·p is normalized once at the end. T + m·p <
+    # 2R·p can reach 2^512 when p > 2^255, so it gets a 33rd column for that
+    # bit, which becomes the top bit of (T + m·p)/R < 2p.
     t = _wide(_halves(a), _halves(b))
     m = _norm16(_wide(t[..., :16], c["np16"])[..., :16])       # T·N' mod R
-    s = _norm16(t + _wide(m, c["p16"]))                         # ≡ 0 mod R
-    hi = s[..., 16:].reshape(*s.shape[:-1], NUM_LIMBS, 2)
-    return reduce_once(hi[..., 0] | (hi[..., 1] << 16), c["p64"])
+    s = _norm16(F.pad(t + _wide(m, c["p16"]), (0, 1)))          # ≡ 0 mod R
+    hi = s[..., 16:32].reshape(*s.shape[:-1], NUM_LIMBS, 2)
+    return reduce_once(hi[..., 0] | (hi[..., 1] << 16), s[..., 32], c["p64"])
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor,

@@ -77,8 +77,8 @@ class FieldOps:
     # -- ring ops ---------------------------------------------------------
 
     def add(self, a, b):
-        s, _ = carry32(u64(a) + u64(b))
-        return reduce_once(s, self._c(a.device)["p64"])
+        s, top = carry32(u64(a) + u64(b))
+        return reduce_once(s, top, self._c(a.device)["p64"])
 
     def sub(self, a, b):
         d, borrow = carry32(u64(a) - u64(b), borrow=True)

@@ -7,8 +7,10 @@ x·R mod p unless a function says "plain". Hopper multiplies 32×32 → 64 bits
 natively, so the kernels take whole words; the JAX package's 12-bit limbs
 exist only because TPU lanes are int32 (bulletproofsplus_tpu/fields/spec.py).
 
-With R = 2^256, p = 2^255 − 19 has one bit of headroom and ℓ three, so every
-operation here returns fully reduced values (< p).
+Every operation here returns fully reduced values (< p). The ed25519 moduli
+lie below 2^255 and the secp256k1 moduli above it, so a sum of two elements
+or an unreduced Montgomery product can carry out of the top word; the
+reductions take that carry as a top bit (fields/mont_mul.py::reduce_once).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ R = 1 << (NUM_LIMBS * LIMB_BITS)
 
 ED25519_P = 2**255 - 19
 ED25519_L = 2**252 + 27742317777372353535851937790883648493
+SECP256K1_P = 2**256 - 2**32 - 977
+SECP256K1_N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +67,8 @@ class FieldSpec:
 
 ED25519_FP = FieldSpec("ed25519_fp", ED25519_P)
 ED25519_FL = FieldSpec("ed25519_fl", ED25519_L)
+SECP256K1_FP = FieldSpec("secp256k1_fp", SECP256K1_P)
+SECP256K1_FN = FieldSpec("secp256k1_fn", SECP256K1_N)
 
 
 def int_to_words(x: int) -> List[int]:

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) and launch them.
 
 The sources compile with nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes; nothing includes PyTorch's headers,
-so a cold build takes seconds. The build runs at first use, into
-bulletproofsplus_tpu_torch/build/ (git-ignored), keyed by a hash of the
-sources, so a checkout builds everything it runs from its own files.
+plain C interface, loaded with ctypes; nothing includes PyTorch's headers.
+Each point-kernel source builds once per point family (csrc/family.cuh:
+-DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
+bpp_<kernel>_weierstrass), and all nine compilations run at once. The build
+runs at first use, into bulletproofsplus_tpu_torch/build/ (git-ignored),
+keyed by a hash of the sources, so a checkout builds everything it runs from
+its own files.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `launch` raises on a nonzero code. Launch counters live
@@ -26,19 +29,23 @@ SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("mont_mul.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu",
            "ladder.cu")
-HEADERS = ("field.cuh", "ed25519.cuh")
+POINT_SOURCES = SOURCES[1:]
+FAMILIES = ("edwards", "weierstrass")     # BPP_FAMILY 0 and 1
+HEADERS = ("field.cuh", "points.cuh", "family.cuh", "ed25519.cuh", "weierstrass.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32P = ctypes.POINTER(ctypes.c_uint32)
-SIGNATURES = {
-    # name: argument types before the trailing stream pointer
-    "bpp_mont_mul": [_P, _P, _P, _LL, _U32P],
+_POINT_SIGNATURES = {
     "bpp_joint_ladder": [_P, _P, _P, _LL, _I, _I, _U32P],
     "bpp_sum_points": [_P, _P, _LL, _LL, _U32P],
     "bpp_fixed_lookup": [_P, _P, _P, _LL, _I, _I, _U32P],
     "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
 }
+# entry point: argument types before the trailing stream pointer
+SIGNATURES = {"bpp_mont_mul": [_P, _P, _P, _LL, _U32P],
+              **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
+                 for fam in FAMILIES}}
 
 _LIB = None
 BUILD_LOG = ""
@@ -64,8 +71,9 @@ def _digest() -> str:
 
 
 def build() -> str:
-    """Compile the sources (one nvcc per file, in parallel) and link the
-    shared library; returns its path. Reuses a library of the same hash."""
+    """Compile the sources (one nvcc per file and family, all in parallel)
+    and link the shared library; returns its path. Reuses a library of the
+    same hash."""
     global BUILD_LOG
     so = os.path.join(BUILD_DIR, f"libbpp_kernels_{_digest()}.so")
     if os.path.exists(so):
@@ -74,17 +82,22 @@ def build() -> str:
     nvcc = nvcc_path()
     common = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-    def compile_one(src):
-        obj = os.path.join(BUILD_DIR, src + f".{os.getpid()}.o")
-        cmd = [nvcc, *common, "-Xptxas", "-v", "-c",
+    def compile_one(unit):
+        src, family = unit
+        tag = "" if family is None else f".{FAMILIES[family]}"
+        obj = os.path.join(BUILD_DIR, src + f"{tag}.{os.getpid()}.o")
+        flags = [] if family is None else [f"-DBPP_FAMILY={family}"]
+        cmd = [nvcc, *common, *flags, "-Xptxas", "-v", "-c",
                os.path.join(SRC_DIR, src), "-o", obj]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+            raise RuntimeError(f"nvcc failed on {src}{tag}:\n{res.stderr}")
         return obj, res.stderr
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        results = list(pool.map(compile_one, SOURCES))
+    units = [(src, None) for src in SOURCES if src not in POINT_SOURCES]
+    units += [(src, f) for src in POINT_SOURCES for f in range(len(FAMILIES))]
+    with ThreadPoolExecutor(len(units)) as pool:
+        results = list(pool.map(compile_one, units))
     tmp = so + f".{os.getpid()}.tmp"
     res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
                           *[obj for obj, _ in results]],
@@ -127,8 +140,11 @@ def check_operands(kernel: str, *pairs) -> None:
 
 
 def launch(name: str, *args, device) -> None:
-    """Call C entry point `name` on `device`'s current stream; raise if the
-    launch reports a CUDA error."""
+    """Call C entry point `name` on `device`'s current stream; raise if there
+    is no such entry point (an unknown point family) or the launch reports a
+    CUDA error."""
+    if name not in SIGNATURES:
+        raise ValueError(f"no kernel entry point {name!r}")
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -8,7 +8,7 @@ package's width canonicalization and XLA scan ladder exist to bound TPU
 compile counts; PyTorch runs eagerly, so the port has one path.
 
 Scalars are PLAIN-form (non-Montgomery) (..., N, 8) limbs over the scalar
-field; points are (..., N, 4, 8).
+field; points are (..., N, C, 8) with C = curve.COORDS.
 """
 from __future__ import annotations
 

@@ -10,9 +10,10 @@ after which Σ_i s_i·P_i = Σ_i Σ_j T[d_ij, j, i], a lookup and one add per
 entries k ∈ [1, 8] (half the memory) for balanced digits; negative digits
 negate the selected point and digit 0 selects the identity.
 
-The table is entry-major (nent, nwin·N, 4, 8), which is also the kernel's
+The table is entry-major (nent, nwin·N, C, 8), which is also the kernel's
 layout, so no separate kernel layout exists. At 2mn = 2048 edwards25519
-points the unsigned table holds 16·64·2048 points of 128 bytes: 268 MB.
+points the unsigned table holds 16·64·2048 points of 128 bytes: 268 MB; at
+2mn = 8192 secp256k1 points 16·64·8192 points of 96 bytes: 805 MB.
 """
 from __future__ import annotations
 
@@ -20,8 +21,12 @@ import torch
 
 from ..curves.cuda_curve import WINDOW, fixed_msm_kernel
 
-POINT_BYTES = 4 * 8 * 4
 DEFAULT_MAX_BYTES = 7 * 1024**3
+
+
+def point_bytes(curve) -> int:
+    """Device bytes of one point: C coordinates of 8 × 32-bit limbs."""
+    return curve.COORDS * curve.fp.L * 4
 
 
 def table_bytes(curve, n_points: int, nbits: int | None = None,
@@ -32,14 +37,15 @@ def table_bytes(curve, n_points: int, nbits: int | None = None,
         nent, nwin = 1 << (WINDOW - 1), curve.fn.signed_window_count(nbits, WINDOW)
     else:
         nent, nwin = 1 << WINDOW, -(-nbits // WINDOW)
-    return nent * nwin * n_points * POINT_BYTES
+    return nent * nwin * n_points * point_bytes(curve)
 
 
 def fixed_base_mode(curve, n_points: int, max_bytes: int = DEFAULT_MAX_BYTES):
     """"unsigned" when its table fits max_bytes (one select fewer per
     lookup), else "signed" when that fits, else None (no table fits; the
     JAX package then runs the generator lanes on the ladder, which the
-    port does not, since edwards25519 tables fit up to 2mn ≈ 110,000)."""
+    port does not: signed tables fit up to 2mn ≈ 110,000 on edwards25519
+    and ≈ 146,000 on secp256k1)."""
     if table_bytes(curve, n_points) <= max_bytes:
         return "unsigned"
     if table_bytes(curve, n_points, signed=True) <= max_bytes:
@@ -48,7 +54,7 @@ def fixed_base_mode(curve, n_points: int, max_bytes: int = DEFAULT_MAX_BYTES):
 
 
 def _window_chain(curve, points, nwin: int):
-    """Q[j] = 2^(4j)·P: (nwin, N, 4, 8)."""
+    """Q[j] = 2^(4j)·P: (nwin, N, C, 8)."""
     chain = [points]
     for _ in range(nwin - 1):
         q = chain[-1]
@@ -59,7 +65,7 @@ def _window_chain(curve, points, nwin: int):
 
 
 def precompute_tables(curve, points, nbits: int | None = None):
-    """Unsigned table (16, nwin·N, 4, 8) for base points (N, 4, 8):
+    """Unsigned table (16, nwin·N, C, 8) for base points (N, C, 8):
     T[0] = identity, T[k] = T[k-1] + Q (the JAX package's scan order)."""
     nbits = nbits or curve.fn.order_bits
     Q = _window_chain(curve, points, -(-nbits // WINDOW)).flatten(0, 1)
@@ -70,7 +76,7 @@ def precompute_tables(curve, points, nbits: int | None = None):
 
 
 def precompute_tables_signed(curve, points, nbits: int | None = None):
-    """Signed table (8, nwin_s·N, 4, 8): entry k-1 = k·Q for k ∈ [1, 8]."""
+    """Signed table (8, nwin_s·N, C, 8): entry k-1 = k·Q for k ∈ [1, 8]."""
     nbits = nbits or curve.fn.order_bits
     nwin = curve.fn.signed_window_count(nbits, WINDOW)
     Q = _window_chain(curve, points, nwin).flatten(0, 1)

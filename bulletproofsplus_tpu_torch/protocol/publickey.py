@@ -3,11 +3,11 @@
 Port of bulletproofsplus_tpu/protocol/publickey.py:17-122: g = base point,
 h = 2g, G_i = 3(i+1)g, H_i = 5(i+1)g (the reference's small multiples,
 publickey.rs:23-39, deliberately insecure and kept for parity). The
-multiples are computed on the host in Python ints (running sums, one shared
-inversion) and uploaded; `fixed_tables` builds the window tables of
-msm/fixed.py on the device once per (pk, mn). `commitment` (:124-138) is
-the committer's host step, as in the JAX package: v·g + γ·h in Python ints,
-encoded onto the key's device.
+multiples are computed on the curve's host arithmetic (curves/host.py) in
+Python ints (running sums, one shared inversion) and uploaded; `fixed_tables`
+builds the window tables of msm/fixed.py on the device once per (pk, mn).
+`commitment` (:124-138) is the committer's host step, as in the JAX package:
+v·g + γ·h in Python ints, encoded onto the key's device.
 """
 from __future__ import annotations
 
@@ -15,13 +15,13 @@ import dataclasses
 
 import torch
 
-from ..curves import host
 from ..device import entry_device
 
 
 @dataclasses.dataclass
 class PublicKey:
-    """Generator set of one curve backend: tensors (4, 8) and (length, 4, 8)."""
+    """Generator set of one curve backend: tensors (C, 8) and (length, C, 8),
+    C = curve.COORDS."""
 
     curve: object
     g: torch.Tensor
@@ -30,20 +30,21 @@ class PublicKey:
     H_vec: torch.Tensor
     _fb_tables: dict = dataclasses.field(default_factory=dict, repr=False,
                                          compare=False)
-    _gh_ext: tuple = dataclasses.field(default=None, repr=False, compare=False)
+    _gh_proj: tuple = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def new(cls, curve, length: int, device=None) -> "PublicKey":
         """Small-multiple generators (publickey.rs:23-39), on `device`
         (default: the CUDA card; pass "cpu" for the CPU)."""
         device = entry_device(device)
-        g = host.to_ext(host.BASE)
-        three, five = host.ext_mul(g, 3), host.ext_mul(g, 5)
+        hc = curve.host
+        g = hc.lift(hc.base)
+        three, five = hc.mul(g, 3), hc.mul(g, 5)
         G, H = [three], [five]
         for _ in range(length - 1):
-            G.append(host.ext_add(G[-1], three))
-            H.append(host.ext_add(H[-1], five))
-        pts = host.to_affine([g, host.ext_add(g, g)] + G[:length] + H[:length])
+            G.append(hc.add(G[-1], three))
+            H.append(hc.add(H[-1], five))
+        pts = hc.to_affine([g, hc.add(g, g)] + G[:length] + H[:length])
         enc = curve.encode_points(pts, device)
         return cls(curve=curve, g=enc[0], h=enc[1], G_vec=enc[2:2 + length],
                    H_vec=enc[2 + length:])
@@ -62,17 +63,18 @@ class PublicKey:
         if self.length == mn:
             return self
         return PublicKey(self.curve, self.g, self.h, self.G_vec[:mn],
-                         self.H_vec[:mn], self._fb_tables, self._gh_ext)
+                         self.H_vec[:mn], self._fb_tables, self._gh_proj)
 
     def commitment(self, v: int, gamma: int) -> torch.Tensor:
-        """Pedersen commitment v·g + γ·h (publickey.rs:50-52): a (4, 8) point
+        """Pedersen commitment v·g + γ·h (publickey.rs:50-52): a (C, 8) point
         on the key's device, computed on the host."""
-        if self._gh_ext is None:
+        hc = self.curve.host
+        if self._gh_proj is None:
             g, h = self.curve.decode_points(torch.stack([self.g, self.h]))
-            self._gh_ext = (host.to_ext(g), host.to_ext(h))
-        g, h = self._gh_ext
-        V = host.ext_add(host.ext_mul(g, v), host.ext_mul(h, gamma))
-        return self.curve.encode_points(host.to_affine([V]), self.device)[0]
+            self._gh_proj = (hc.lift(g), hc.lift(h))
+        g, h = self._gh_proj
+        V = hc.add(hc.mul(g, v), hc.mul(h, gamma))
+        return self.curve.encode_points(hc.to_affine([V]), self.device)[0]
 
     def fixed_tables(self, mn: int):
         """Window tables over [G_vec[:mn] ‖ H_vec[:mn]], built on first use:

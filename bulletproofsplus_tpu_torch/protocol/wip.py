@@ -27,10 +27,10 @@ from ..curves.cuda_curve import joint_ladder_msm_grouped, sum_points_grouped
 class WipProof:
     """2·log2(n) points + A, B and three Montgomery-form scalars."""
 
-    L_vec: torch.Tensor    # (rounds, 4, 8)
-    R_vec: torch.Tensor    # (rounds, 4, 8)
-    A: torch.Tensor        # (4, 8)
-    B: torch.Tensor        # (4, 8)
+    L_vec: torch.Tensor    # (rounds, C, 8), C = curve.COORDS
+    R_vec: torch.Tensor    # (rounds, C, 8)
+    A: torch.Tensor        # (C, 8)
+    B: torch.Tensor        # (C, 8)
     r_prime: torch.Tensor  # (8,)
     s_prime: torch.Tensor  # (8,)
     d_prime: torch.Tensor  # (8,)
@@ -61,9 +61,9 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
                             es_m, dLs_m, dRs_m, r_m, s_m, delta_m, eta_m, ef_m):
     """The whole fold of K proofs whose challenges and blinds are known
     ahead (wip:36-227). a, b, power_of_y (K, n, 8) and α (K, 8) Montgomery;
-    G, H (n, 4, 8), g, h (4, 8) the key's generators; es/dLs/dRs
+    G, H (n, C, 8), g, h (C, 8) the key's generators; es/dLs/dRs
     (K, log2 n, 8); r, s, δ, η, e_final (K, 8). Returns (L_vec, R_vec
-    (K, log2 n, 4, 8), A, B (K, 4, 8), r', s', δ' (K, 8))."""
+    (K, log2 n, C, 8), A, B (K, C, 8), r', s', δ' (K, 8))."""
     fn = curve.fn
     K, n = a.shape[:2]
     logn = n.bit_length() - 1
@@ -77,7 +77,7 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
     es_inv_sqr = fn.mul(es_inv, es_inv)
 
     Gk, Hk = G.expand(K, *G.shape), H.expand(K, *H.shape)
-    gk, hk = g.expand(K, 4, 8), h.expand(K, 4, 8)
+    gk, hk = g.expand(K, *g.shape), h.expand(K, *h.shape)
     Ls, Rs = [], []
     for r, half in enumerate(hs):
         with record_function("bpp::fold_round"):
@@ -102,7 +102,7 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
             P = torch.stack([
                 torch.cat([G2, H1, gk[:, None], hk[:, None]], dim=1),
                 torch.cat([G1, H2, gk[:, None], hk[:, None]], dim=1),
-            ], dim=1)                                          # (K, 2, W, 4, 8)
+            ], dim=1)                                          # (K, 2, W, C, 8)
             LR = joint_rows_msm(curve, fn.from_mont(S), P, nbits)
             Ls.append(LR[:, 0])
             Rs.append(LR[:, 1])
@@ -119,7 +119,7 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
             pair_s = torch.cat([fold4[:, None, :2].expand(K, half, 2, 8),
                                 fold4[:, None, 2:].expand(K, half, 2, 8)], dim=1)
             out = joint_ladder_msm_grouped(curve, pair_s.reshape(K, 4 * half, 8),
-                                           pair_p.reshape(K, 4 * half, 4, 8), nbits, 2)
+                                           pair_p.reshape(K, 4 * half, *g.shape), nbits, 2)
             Gk, Hk = out[:, :half], out[:, half:]
             alpha = fn.add(alpha, fn.add(fn.mul(es_sqr[:, r], dLs_m[:, r]),
                                          fn.mul(es_inv_sqr[:, r], dRs_m[:, r])))

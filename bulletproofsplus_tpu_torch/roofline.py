@@ -6,8 +6,14 @@ integer multiply-adds over the card's int32 multiply rate. NVIDIA's data
 sheet gives 67 TFLOP/s in float32, i.e. 33.5 T FMA/s on 128 lanes an SM;
 the int32 multiply pipe has 64, so 16.75 T multiply-adds/s. A 32×32→64
 product counts as two (low and high word); a CIOS Montgomery product of 8
-words has 128 of them and 8 low products; a point add has 9 Montgomery
-products, a doubling 8. Adds, subtracts and selects are free.
+words has 128 of them and 8 low products. Adds, subtracts and selects are
+free. Per point family (the suffix of a point kernel's entry point):
+
+- Edwards: an add has 9 Montgomery products, a doubling 8 (hwcd); a
+  point is 4 coordinates, 128 bytes.
+- Weierstrass: an add has 14, a doubling 9 (RCB algorithms 7 and 9,
+  `_wadd`/`_wdbl` of bulletproofsplus_tpu/curves/pallas_curve.py); a point
+  is 3 coordinates, 96 bytes.
 
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
@@ -20,14 +26,16 @@ import contextlib
 HBM_BYTES_PER_S = 3.35e12
 INT_MADS_PER_S = 16.75e12
 FE_MUL_MADS = 8 * (16 * 2 + 1)
-ADD_MULS, DBL_MULS = 9, 8
-POINT_BYTES, SCALAR_BYTES = 128, 32
+SCALAR_BYTES = 32
+# family → (products of an add, of a doubling, bytes of a point)
+FAMILIES = {"edwards": (9, 8, 128), "weierstrass": (14, 9, 96)}
 
 
-def ladder_muls(groups: int, jway: int, nwin: int) -> int:
+def ladder_muls(groups: int, jway: int, nwin: int, family: str = "edwards") -> int:
     """Montgomery products of `groups` J-way windowed ladders (tables by 14
     adds each, then nwin windows of 4 doublings and J adds)."""
-    return groups * (jway * 14 * ADD_MULS + nwin * (4 * DBL_MULS + jway * ADD_MULS))
+    add, dbl, _ = FAMILIES[family]
+    return groups * (jway * 14 * add + nwin * (4 * dbl + jway * add))
 
 
 def launch_work(name: str, args) -> tuple:
@@ -37,19 +45,21 @@ def launch_work(name: str, args) -> tuple:
     if name == "bpp_mont_mul":
         n = args[3]
         return n * 3 * SCALAR_BYTES, n
+    name, family = name.rsplit("_", 1)
+    add, _, pt = FAMILIES[family]
     if name == "bpp_joint_ladder":
         G, J, nwin = args[3:6]
-        return (G * J * (POINT_BYTES + SCALAR_BYTES) + G * POINT_BYTES,
-                ladder_muls(G, J, nwin))
+        return (G * J * (pt + SCALAR_BYTES) + G * pt,
+                ladder_muls(G, J, nwin, family))
     if name == "bpp_sum_points":
         G, W = args[2:4]
-        return G * W * POINT_BYTES + G * POINT_BYTES, G * (W - 1) * ADD_MULS
+        return G * W * pt + G * pt, G * (W - 1) * add
     if name == "bpp_fixed_lookup":
         lanes, nblocks = args[3], args[5]
-        return lanes * (POINT_BYTES + 4) + nblocks * POINT_BYTES, lanes * ADD_MULS
+        return lanes * (pt + 4) + nblocks * pt, lanes * add
     if name == "bpp_ladder":
         N, nwin = args[3:5]
-        return N * (2 * POINT_BYTES + SCALAR_BYTES), ladder_muls(N, 1, nwin)
+        return N * (2 * pt + SCALAR_BYTES), ladder_muls(N, 1, nwin, family)
     raise ValueError(f"no work model for {name}")
 
 

@@ -1,50 +1,84 @@
-"""edwards25519 point compression and range-proof wire format.
+"""Point compression and the range-proof wire format, per curve.
 
-Port of bulletproofsplus_tpu/serialize.py:68-228 for edwards25519, with the
-subgroup check of :37-65: a point is 32 bytes, y little-endian with sign(x)
-in the top bit; a proof is [rounds:u8] ‖ A ‖ L_vec ‖ R_vec ‖ A_wip ‖ B ‖
-r' ‖ s' ‖ δ' with 32-byte little-endian scalars. Decoding rejects bytes off
-the curve or outside the prime-order subgroup with FormatError (one host
-scalar multiplication per point, so decode a statement once and reuse it).
+Port of bulletproofsplus_tpu/serialize.py:68-228 for the port's curves, with
+the subgroup check of :37-65. Fixed length per curve:
+
+- edwards25519: 32 bytes, y little-endian with sign(x) in the top bit;
+  decoding also checks the prime-order subgroup (cofactor 8; one host
+  scalar multiplication per point, so decode a statement once and reuse it).
+- secp256k1: 33 bytes, SEC1 compressed: 02/03 (parity of y) ‖ x
+  big-endian; the identity is 0x00 ‖ 32 zero bytes. The cofactor is 1, so a
+  point on the curve is in the group.
+
+A proof is [rounds:u8] ‖ A ‖ L_vec ‖ R_vec ‖ A_wip ‖ B ‖ r' ‖ s' ‖ δ' with
+32-byte little-endian scalars. Malformed, off-curve or non-subgroup bytes
+raise FormatError.
 """
 from __future__ import annotations
 
+import struct
 from typing import List
 
 import torch
 
-from .curves import host
+from .curves.host import Affine
 from .device import entry_device
 from .errors import FormatError
 
-POINT_LEN = 32
 SCALAR_LEN = 32
 
 
-def point_bytes(P: host.Affine) -> bytes:
-    x, y = (0, 1) if P is None else P
-    enc = bytearray(y.to_bytes(32, "little"))
-    enc[31] |= (x & 1) << 7
-    return bytes(enc)
+def point_len(curve) -> int:
+    return 32 if curve.COORDS == 4 else 33
 
 
-def point_from_bytes(data: bytes) -> host.Affine:
+def point_bytes(curve, P: Affine) -> bytes:
+    """Compress a host affine point (None = identity)."""
+    if curve.COORDS == 4:
+        x, y = (0, 1) if P is None else P
+        enc = bytearray(y.to_bytes(32, "little"))
+        enc[31] |= (x & 1) << 7
+        return bytes(enc)
+    if P is None:
+        return bytes(33)
+    x, y = P
+    return bytes([2 + (y & 1)]) + x.to_bytes(32, "big")
+
+
+def point_from_bytes(curve, data: bytes) -> Affine:
     """Decompress to an affine tuple (None = identity); FormatError for
     malformed, off-curve or non-subgroup input."""
-    if len(data) != POINT_LEN:
+    hc = curve.host
+    if len(data) != point_len(curve):
         raise FormatError()
-    sign = data[31] >> 7
-    y = int.from_bytes(bytes(data[:31]) + bytes([data[31] & 0x7F]), "little")
-    if y >= host.P:
-        raise FormatError()
-    if y == 1 and sign == 0:
+    if curve.COORDS == 4:
+        sign = data[31] >> 7
+        y = int.from_bytes(bytes(data[:31]) + bytes([data[31] & 0x7F]), "little")
+        if y >= hc.p:
+            raise FormatError()
+        if y == 1 and sign == 0:
+            return None
+        try:
+            x = hc.recover_x(y, sign)
+        except ValueError:
+            raise FormatError()
+        if not hc.in_subgroup((x, y)):
+            raise FormatError("point not in the prime-order subgroup")
+        return (x, y)
+    if data[0] == 0:
+        if any(data[1:]):
+            raise FormatError()
         return None
-    try:
-        x = host.recover_x(y, sign)
-    except ValueError:
+    if data[0] not in (2, 3):
         raise FormatError()
-    if not host.in_subgroup((x, y)):
-        raise FormatError("point not in the prime-order subgroup")
+    x = int.from_bytes(data[1:], "big")
+    if x >= hc.p:
+        raise FormatError()
+    y = hc.sqrt(x * x * x + hc.b)
+    if y is None:
+        raise FormatError()
+    if y & 1 != data[0] - 2:
+        y = hc.p - y
     return (x, y)
 
 
@@ -61,12 +95,12 @@ def decode_proof(curve, data: bytes):
     if len(data) < 1:
         raise FormatError()
     rounds = data[0]
-    npts = 2 * rounds + 3
-    if len(data) != 1 + npts * POINT_LEN + 3 * SCALAR_LEN:
+    npts, plen = 2 * rounds + 3, point_len(curve)
+    if len(data) != 1 + npts * plen + 3 * SCALAR_LEN:
         raise FormatError()
-    pts = [point_from_bytes(data[1 + i * POINT_LEN: 1 + (i + 1) * POINT_LEN])
+    pts = [point_from_bytes(curve, data[1 + i * plen: 1 + (i + 1) * plen])
            for i in range(npts)]
-    off = 1 + npts * POINT_LEN
+    off = 1 + npts * plen
     scalars = [scalar_from_bytes(curve, data[off + i * SCALAR_LEN:
                                              off + (i + 1) * SCALAR_LEN])
                for i in range(3)]
@@ -98,36 +132,45 @@ def proof_to_bytes(curve, proof) -> bytes:
         torch.cat([proof.A[None], w.L_vec, w.R_vec, w.A[None], w.B[None]]))
     out = bytearray([w.rounds])
     for P in pts:
-        out += point_bytes(P)
+        out += point_bytes(curve, P)
     for s in (w.r_prime, w.s_prime, w.d_prime):
         out += curve.fn.decode(s).to_bytes(SCALAR_LEN, "little")
     return bytes(out)
 
 
-def points_from_bytes(data: bytes) -> List[host.Affine]:
-    """Concatenated 32-byte points → affine tuples."""
-    if len(data) % POINT_LEN:
+def points_from_bytes(curve, data: bytes) -> List[Affine]:
+    """Concatenated compressed points → affine tuples."""
+    plen = point_len(curve)
+    if len(data) % plen:
         raise FormatError()
-    return [point_from_bytes(data[i:i + POINT_LEN])
-            for i in range(0, len(data), POINT_LEN)]
-
-
-FIXTURE_MAGIC = b"BPPF1"
+    return [point_from_bytes(curve, data[i:i + plen])
+            for i in range(0, len(data), plen)]
 
 
 def read_fixture(data: bytes):
-    """Parse a statement fixture (scripts/make_torch_fixtures.py):
-    returns (n, m, [(commitment bytes (m·32), proof bytes)])."""
-    if not data.startswith(FIXTURE_MAGIC) or len(data) < 9:
+    """Parse a statement fixture (scripts/make_torch_fixtures.py): returns
+    (curve name, n, m, [(commitment bytes (m points), proof bytes)]).
+
+    BPPF2 names its curve and holds n and m as u16; BPPF1, the format of
+    the edwards25519 fixture, holds them as u8 and implies edwards25519."""
+    from .curves import curve_ops
+
+    if data.startswith(b"BPPF1") and len(data) >= 9:
+        name, (n, m, count), off = "edwards25519", struct.unpack(">BBH", data[5:9]), 9
+    elif data.startswith(b"BPPF2") and len(data) >= 12 + data[5]:
+        end = 6 + data[5]
+        name = data[6:end].decode()
+        (n, m, count), off = struct.unpack(">HHH", data[end:end + 6]), end + 6
+    else:
         raise FormatError("not a statement fixture")
-    n, m, count = data[5], data[6], int.from_bytes(data[7:9], "big")
-    off, rows = 9, []
+    plen = point_len(curve_ops(name))
+    rows = []
     for _ in range(count):
-        comms = data[off:off + m * POINT_LEN]
-        off += m * POINT_LEN
+        comms = data[off:off + m * plen]
+        off += m * plen
         size = int.from_bytes(data[off:off + 2], "big")
         rows.append((comms, data[off + 2:off + 2 + size]))
         off += 2 + size
     if off != len(data):
         raise FormatError("trailing bytes in statement fixture")
-    return n, m, rows
+    return name, n, m, rows

@@ -1,31 +1,36 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's batch prover and verifier once on one CUDA card.
 
-Phases (any failure exits nonzero before the final line):
-  1. build the five kernels from bulletproofsplus_tpu_torch/csrc; print the
-     card's name and power limit (nvidia-smi);
-  2. hold K1 (Montgomery multiply), K2 (joint ladder) and K3 (grouped point
-     sum) against their plain PyTorch versions on the card, at the shapes
-     of the verify batch below (K2 at J = 8 on 1,249 groups, K3 over
-     1 × 1,249 points), and time both;
+Phase 1 builds the kernels from bulletproofsplus_tpu_torch/csrc and prints
+the card's name and power limit (nvidia-smi). Then, for each curve in
+turn (edwards25519 at n = 64, m = 16 from its BPPF1 fixture, secp256k1 at
+n = 64, m = 64 from its BPPF2 fixture; K = 256 for both), any failure
+exiting nonzero before the final line:
+  2. hold K1 (Montgomery multiply) against its plain PyTorch version at both
+     of the curve's moduli on 262,144 elements that include p − 1 and values
+     in [p/2, p), and K2 (joint ladder, J = 8) and K3 (grouped point sum) at
+     the shapes of the verify batch below (edwards25519: 1,249 groups;
+     secp256k1: 2,913), and time both;
   3. build PublicKey.new(n·m) and its fixed-base tables on the card, then
      hold K4 (fixed-base lookup) against its plain version on those tables
      (unsigned) and on a smaller signed table;
-  4. batch-verify K = 256 statements at edwards25519, n = 64, m = 16
-     (statement k is fixture proof k mod P, each with its own random
-     weight: the MSM work of 256 proofs) with every launch counter at 0
-     before the run; the batch must accept and K1-K4 must have run;
+  4. batch-verify K = 256 statements (statement k is fixture proof k mod P,
+     each with its own random weight: the MSM work of 256 proofs) with every
+     launch counter at 0 before the run; the batch must accept and K1-K4
+     must have run;
   5. the same batch with one scalar of one proof changed must reject;
-  6. single verify (K = 1) of one fixture proof must accept; the exponent
-     vectors of two proofs must equal those of the plain (CPU) path;
+  6. single verify (K = 1) of one fixture proof must accept; on
+     edwards25519 the exponent vectors of two proofs must equal those of
+     the plain (CPU) path;
   7. hold the prover's kernels against their plain versions at its shapes:
-     K5 (per-lane ladder; 256 lanes, 253 bits, with a zero scalar and the
-     identity), K2 at J = 2 on 262,144 groups (round 0's generator fold)
-     and at J = 4 on 131,584 groups (round 0's L/R, zero-scalar identity
-     padding included), K3 over 512 × 257 points (L/R's sums) and
-     256 × 1,025 points (the bit commitments), on the key's generators
-     with seeded random scalars and bits;
-  8. rebuild the fixture's 16 witnesses, commit them (each commitment must
+     K5 (per-lane ladder; 256 lanes at the group order's width, with a zero
+     scalar and the identity), K2 at J = 2 on K·mn groups (round 0's
+     generator fold) and at J = 4 on 2K·(mn + 4)/4 groups (round 0's L/R,
+     zero-scalar identity padding included), K3 over 2K × (mn + 4)/4 points
+     (L/R's sums) and K × (mn + 1) points (the bit commitments), on the
+     key's generators with seeded random scalars and bits; K2 is timed at
+     its full shape and compared on its first 16,384 groups;
+  8. rebuild the fixture's witnesses, commit them (each commitment must
      equal the fixture's bytes) and batch-prove them on the card: every
      proof must equal the committed golden-made bytes;
   9. batch-prove the K = 256 statements of bench.py (v = (7k + 3i + 2) mod
@@ -33,10 +38,10 @@ Phases (any failure exits nonzero before the final line):
      launch counter at 0 before the first run; K1, K2, K3 and K5 must have
      run; then batch-verify the proven batch (accept) and a tampered copy
      (reject);
- 10. prove and verify one m = 1 statement at n = 64;
- 11. print the batch timings, the kernels' JSON line (one row for each
-     kernel and shape held above: time, plain time, bound and launches),
-     the card, and the device line last.
+ 10. prove and verify one m = 1 statement at n = 64.
+Last, it prints each curve's batch timings on their own lines, the kernels'
+JSON line (one row for each curve, kernel and shape held above: time, plain
+time, bound and launches), the card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
 """
@@ -53,11 +58,18 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "data",
-                       "ed25519_n64_m16_det.bin")
+DATA = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "data")
+FIXTURES = {"edwards25519": os.path.join(DATA, "ed25519_n64_m16_det.bin"),
+            "secp256k1": os.path.join(DATA, "secp256k1_n64_m64_det.bin")}
 K_BATCH = 256
+K1_ELEMENTS = 262_144
+PLAIN_PREFIX = 16_384   # groups on which K2 at the prover's shapes meets its plain version
 DEVICE = "cuda:0"
-
+SOURCES = {"K1": ("mont_mul", "mont_mul.cu", "fields/pallas_ops.py:369"),
+           "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
+           "K3": ("sum_points", "sum_points.cu", "curves/pallas_curve.py:553"),
+           "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
+           "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
 
 
 def log(msg: str) -> None:
@@ -96,7 +108,7 @@ def int_err(xs, ys) -> int:
 def affine_ints(curve, pts) -> list:
     out = []
     for A in curve.decode_points(pts):
-        out += [0, 1] if A is None else list(A)
+        out += [0, 0, 0] if A is None else [1, *A]
     return out
 
 
@@ -119,60 +131,64 @@ def coord_err(field):
     return err
 
 
-def hold(held: dict, key, kernel, plain, err_of, reps: int):
+def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None):
     """Hold one kernel call against its plain version on the same inputs;
     fail if they differ. Records held[key] = (max_abs_err, kernel ms, plain
-    ms, (bound_ms, bound_by)), the bound being that of the launches the call
-    made, and returns the kernel's output."""
+    ms, (bound_ms, bound_by)), the bound being that of the launches the
+    call made, and returns the kernel's output. With `prefix`, the plain
+    version runs on the first `prefix` groups only (independent groups) and
+    meets that prefix of the kernel's output."""
     from bulletproofsplus_tpu_torch import roofline
 
     with roofline.recorded_launches() as calls:
         ker = kernel()
     ref, plain_ms = once_ms(plain)
-    err = err_of(ker, ref)
+    err = err_of(ker if prefix is None else ker[:prefix], ref)
     ms = cuda_ms(kernel, reps)
     held[key] = (err, ms, plain_ms, roofline.bound(calls))
-    log(f"{key[0]} at {key[1]}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+    what = " ".join(key)
+    log(f"{what}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms"
+        f"{'' if prefix is None else f' (first {prefix} groups)'}, "
         f"bound {held[key][3][0]:.4f} ms")
     if err != 0:
-        raise AssertionError(f"{key[0]} at {key[1]} disagrees with its plain version "
-                             f"(err {err})")
+        raise AssertionError(f"{what} disagrees with its plain version (err {err})")
     return ker
 
 
 def random_scalars(count: int, gen, device):
-    """count seeded plain-form scalars below 2^252 (< the group order)."""
+    """count seeded plain-form scalars below 2^252 (< either group order)."""
     s = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32,
                       generator=gen, device=device)
     s[:, 7] &= 0x0FFFFFFF
     return s
 
 
-def random_points(count: int, seed: int, device):
+def random_points(curve, count: int, seed: int, device):
     """count distinct points (a + i·b)·B by host running sums."""
-    from bulletproofsplus_tpu_torch import curve_ops
-    from bulletproofsplus_tpu_torch.curves import host
-
+    hc = curve.host
     rnd = random.Random(seed)
-    B = host.to_ext(host.BASE)
-    step = host.ext_mul(B, rnd.randrange(1, 1 << 64))
-    cur = host.ext_mul(B, rnd.randrange(1, 1 << 64))
+    B = hc.lift(hc.base)
+    step = hc.mul(B, rnd.randrange(1, 1 << 64))
+    cur = hc.mul(B, rnd.randrange(1, 1 << 64))
     pts = []
     for _ in range(count):
         pts.append(cur)
-        cur = host.ext_add(cur, step)
-    return curve_ops().encode_points(host.to_affine(pts), device)
+        cur = hc.add(cur, step)
+    return curve.encode_points(hc.to_affine(pts), device)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
-              file=sys.stderr)
-        return 2
+def field_operands(f, count: int, rnd, device):
+    """count operands of f: p − 1, p − 2, then half uniform, half from
+    [p/2, p) (sums past p, and past 2^256 for a modulus above 2^255)."""
+    p = f.p
+    half = (count - 2) // 2
+    vals = ([p - 1, p - 2] + [rnd.randrange(p) for _ in range(half)]
+            + [rnd.randrange(p // 2, p) for _ in range(count - 2 - half)])
+    return f.encode(vals, device)
 
+
+def smoke_curve(name: str, seed: int, held: dict, counted):
+    """Phases 2-10 on one curve; returns its timing lines."""
     from bulletproofsplus_tpu_torch import (
         DeterministicRng,
         DeterministicTranscript,
@@ -183,7 +199,6 @@ def main() -> int:
         batch_prove,
         batch_verify,
         curve_ops,
-        kernels,
         prove,
         serialize,
         stack_commitments,
@@ -199,52 +214,40 @@ def main() -> int:
     )
 
     dev = torch.device(DEVICE)
-    curve = curve_ops()
+    curve = curve_ops(name)
     fn, fp = curve.fn, curve.fp
-    rnd = random.Random(args.seed)
-    results = {}
+    C = curve.COORDS
+    rnd = random.Random(seed)
+    nbits = fn.order_bits
 
-    # -- 1. build + card ---------------------------------------------------
-    t = time.time()
-    kernels.library()
-    log(f"kernels built/loaded in {time.time() - t:.1f} s")
-    for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(line.strip(), file=sys.stderr)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"card: {card}")
-
-    # shapes of the K = 256, n = 64, m = 16 batch
-    with open(FIXTURE, "rb") as f:
-        n, m, rows = serialize.read_fixture(f.read())
+    with open(FIXTURES[name], "rb") as f:
+        fix_curve, n, m, rows = serialize.read_fixture(f.read())
+    if fix_curve != name:
+        raise AssertionError(f"{FIXTURES[name]} holds {fix_curve} statements")
     mn = n * m
     logn = mn.bit_length() - 1
     var_lanes = K_BATCH * (3 + 2 * logn + m) + 2
     J = joint_width(var_lanes)
     G = -(-var_lanes // J)
-    nbits = fn.order_bits
+    log(f"== {name}: n = {n}, m = {m}, K = {K_BATCH}, {len(rows)} fixture statements")
 
     # -- 2. K1, K2, K3 against their plain versions -------------------------
-    # held[(kernel, shape)] = (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
-    held = {}
-    N1 = K_BATCH * mn
-    a = fn.encode([rnd.randrange(fn.p) for _ in range(N1)], dev)
-    b = fn.encode([rnd.randrange(fn.p) for _ in range(N1)], dev)
-    hold(held, ("K1", f"{N1} elements"),
-         lambda: mont_mul(a, b, fn.spec), lambda: mont_mul_plain(a, b, fn.spec),
-         lambda ker, ref: int_err(fn.decode(ker), fn.decode(ref)), 20)
+    for f in (fp, fn):
+        a = field_operands(f, K1_ELEMENTS, rnd, dev)
+        b = field_operands(f, K1_ELEMENTS, rnd, dev)
+        hold(held, (name, "K1", f"{K1_ELEMENTS} elements mod {f.spec.name}"),
+             lambda: mont_mul(a, b, f.spec), lambda: mont_mul_plain(a, b, f.spec),
+             lambda ker, ref: int_err(f.decode(ker), f.decode(ref)), 20)
 
-    pts = random_points(G * J, rnd.randrange(1 << 30), dev)
+    pts = random_points(curve, G * J, rnd.randrange(1 << 30), dev)
     scal = fn.encode_plain([rnd.randrange(fn.p) for _ in range(G * J)], dev)
-    ker = hold(held, ("K2", f"J={J}, {G} groups"),
+    ker = hold(held, (name, "K2", f"J={J}, {G} groups"),
                lambda: cc.joint_ladder_msm_grouped(curve, scal, pts, nbits, J),
                lambda: cc.joint_ladder_plain(curve, scal.reshape(G, J, 8),
-                                             pts.reshape(G, J, 4, 8), nbits),
+                                             pts.reshape(G, J, C, 8), nbits),
                coord_err(fp), 3)
-    grp = ker[None]                                   # (1, G, 4, 8): the MSM's sum
-    hold(held, ("K3", f"1 x {G} points"),
+    grp = ker[None]                                   # (1, G, C, 8): the MSM's sum
+    hold(held, (name, "K3", f"1 x {G} points"),
          lambda: cc.sum_points_grouped(curve, grp), lambda: cc.sum_points_plain(curve, grp),
          affine_err(curve), 20)
 
@@ -257,11 +260,11 @@ def main() -> int:
         f"({tables.numel() * 4 / 1e6:.0f} MB) in {time.time() - t:.1f} s")
     gen_s = fn.encode_plain([rnd.randrange(fn.p) for _ in range(2 * mn)], dev)
     dig = cc.fixed_digits(curve, gen_s, nbits, signed=False)
-    hold(held, ("K4", f"{dig.numel()} lanes"),
+    hold(held, (name, "K4", f"{dig.numel()} lanes"),
          lambda: cc.fixed_lookup_partials(curve, tables, dig, False),
          lambda: cc.fixed_lookup_plain(curve, tables, dig, False),
          lambda ker, ref: affine_err(curve)(cc.sum_points_plain(curve, ker[None]), ref), 20)
-    small = random_points(32, 11, dev)
+    small = random_points(curve, 32, 11, dev)
     stab = precompute_tables_signed(curve, small)
     sdig = cc.fixed_digits(curve, gen_s[:32], nbits, signed=True)
     signed_err = int_err(
@@ -269,40 +272,24 @@ def main() -> int:
             curve, cc.fixed_lookup_partials(curve, stab, sdig, True)[None])),
         affine_ints(curve, cc.fixed_lookup_plain(curve, stab, sdig, True)))
     if signed_err:
-        raise AssertionError(f"K4 (signed table) disagrees with its plain version "
+        raise AssertionError(f"{name} K4 (signed table) disagrees with its plain version "
                              f"(err {signed_err})")
 
     # -- 4. batch verify K = 256 -------------------------------------------
     t = time.time()
     decoded = [serialize.proof_from_bytes(curve, wire, dev) for _, wire in rows]
-    comms = torch.stack([curve.encode_points(serialize.points_from_bytes(c), dev)
+    comms = torch.stack([curve.encode_points(serialize.points_from_bytes(curve, c), dev)
                          for c, _ in rows])
     P = len(rows)
     idx = torch.arange(K_BATCH, device=dev) % P
     batch = ProofBatch.from_proofs(decoded).take(idx)
     V = comms[idx]
     log(f"decoded {P} fixture statements in {time.time() - t:.1f} s")
-    wrng = random.Random(args.seed + 1)
+    wrng = random.Random(seed + 1)
 
     def run_batch(b=batch):
         batch_verify(curve, pk, n, b, V, [DeterministicTranscript(m)] * K_BATCH,
                      rng=lambda: wrng.getrandbits(128))
-
-    wrappers = {"K1": mont_mul, "K2": cc.joint_ladder_msm_grouped,
-                "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
-                "K5": cc.ladder_scalar_mul}
-
-    def counted(run, needed):
-        """Run `run` once with every launch counter at 0 just before it;
-        (result, ms, launches). Fails if a kernel of `needed` never ran."""
-        for w in wrappers.values():
-            w.launches = 0
-        out, ms = once_ms(run)
-        counts = {k: w.launches for k, w in wrappers.items()}
-        missing = [k for k in needed if counts[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the path: {missing}")
-        return out, ms, counts
 
     _, first_ms, launches = counted(run_batch, ("K1", "K2", "K3", "K4"))
     log(f"batch_verify K={K_BATCH} accepted ({first_ms:.1f} ms); launches {launches}")
@@ -326,8 +313,7 @@ def main() -> int:
     _, single_ms = once_ms(lambda: verify(curve, decoded[0], pk, n, comms[0],
                                           DeterministicTranscript(m)))
     log(f"single verify accepted ({single_ms:.1f} ms)")
-    challenges = replay_batch(curve, n, m, [DeterministicTranscript(m)] * 2)
-    ys, zs, ess, efs = challenges
+    ys, zs, ess, efs = replay_batch(curve, n, m, [DeterministicTranscript(m)] * 2)
 
     def exponents(f, device):
         two = batch.take(slice(0, 2))
@@ -337,38 +323,39 @@ def main() -> int:
             f.encode(efs, device), two.r_prime.to(device),
             two.s_prime.to(device), two.d_prime.to(device))
 
-    dev_out = exponents(fn, dev)
-    cpu_out = exponents(fn, "cpu")
-    for x, y in zip(dev_out, cpu_out):
-        if not torch.equal(x.cpu(), y):
-            raise AssertionError("device exponent vectors differ from the plain path")
-    log("exponent vectors (K=2) equal on card and CPU")
+    if name == "edwards25519":    # at secp256k1's mn = 4,096 the CPU side takes ~40 s
+        for x, y in zip(exponents(fn, dev), exponents(fn, "cpu")):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError("device exponent vectors differ from the plain path")
+        log("exponent vectors (K=2) equal on card and CPU")
 
     # -- 7. the prover's kernels at its shapes ------------------------------
-    pts5 = random_points(K_BATCH, rnd.randrange(1 << 30), dev)
+    pts5 = random_points(curve, K_BATCH, rnd.randrange(1 << 30), dev)
     pts5[1] = curve.identity(dev)
     s5 = fn.encode_plain([0] + [rnd.randrange(fn.p) for _ in range(K_BATCH - 1)], dev)
-    h_alpha = hold(held, ("K5", f"{K_BATCH} lanes, {nbits} bits"),
+    h_alpha = hold(held, (name, "K5", f"{K_BATCH} lanes, {nbits} bits"),
                    lambda: cc.ladder_scalar_mul(curve, s5, pts5, nbits),
                    lambda: cc.ladder_plain(curve, s5, pts5, nbits), coord_err(fp), 20)
 
     gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
+    gen.manual_seed(seed)
     half = mn // 2
     Gv, Hv = pk.G_vec, pk.H_vec
     # round 0's fold: (G1_i, G2_i) and (H1_i, H2_i) pairs of every proof
     fold_p = torch.cat([torch.stack([Gv[:half], Gv[half:]], 1),
                         torch.stack([Hv[:half], Hv[half:]], 1)])
-    fold_p = fold_p.expand(K_BATCH, *fold_p.shape).reshape(-1, 4, 8).clone()
+    fold_p = fold_p.expand(K_BATCH, *fold_p.shape).reshape(-1, C, 8).clone()
     fold_p[3] = curve.identity(dev)
     fold_s = random_scalars(fold_p.shape[0], gen, dev)
     fold_s[:2] = 0
     Gf = fold_p.shape[0] // 2
-    hold(held, ("K2", f"J=2, {Gf} groups"),
+    pre = min(PLAIN_PREFIX, Gf)
+    hold(held, (name, "K2", f"J=2, {Gf} groups"),
          lambda: cc.joint_ladder_msm_grouped(curve, fold_s, fold_p, nbits, 2),
-         lambda: cc.joint_ladder_plain(curve, fold_s.reshape(Gf, 2, 8),
-                                       fold_p.reshape(Gf, 2, 4, 8), nbits),
-         coord_err(fp), 3)
+         lambda: cc.joint_ladder_plain(curve, fold_s[:2 * pre].reshape(pre, 2, 8),
+                                       fold_p[:2 * pre].reshape(pre, 2, C, 8), nbits),
+         coord_err(fp), 3, prefix=pre)
+    del fold_p, fold_s
 
     # round 0's L and R rows: [G2 ‖ H1 ‖ g ‖ h] and [G1 ‖ H2 ‖ g ‖ h], padded
     # to a multiple of 4 with identity points and zero scalars
@@ -378,38 +365,41 @@ def main() -> int:
     gh = torch.stack([pk.g, pk.h])
     lr_p = torch.stack([torch.cat([Gv[half:], Hv[:half], gh, pad]),
                         torch.cat([Gv[:half], Hv[half:], gh, pad])])
-    lr_p = lr_p.expand(K_BATCH, *lr_p.shape).reshape(-1, 4, 8)
+    lr_p = lr_p.expand(K_BATCH, *lr_p.shape).reshape(-1, C, 8)
     lr_s = random_scalars(lr_p.shape[0], gen, dev)
     lr_s.view(K_BATCH, 2, Wp, 8)[:, :, W:] = 0
     Gl = lr_p.shape[0] // 4
-    lr = hold(held, ("K2", f"J=4, {Gl} groups"),
+    pre = min(PLAIN_PREFIX, Gl)
+    lr = hold(held, (name, "K2", f"J=4, {Gl} groups"),
               lambda: cc.joint_ladder_msm_grouped(curve, lr_s, lr_p, nbits, 4),
-              lambda: cc.joint_ladder_plain(curve, lr_s.reshape(Gl, 4, 8),
-                                            lr_p.reshape(Gl, 4, 4, 8), nbits),
-              coord_err(fp), 3)
-    lr = lr.reshape(2 * K_BATCH, Wp // 4, 4, 8)
-    hold(held, ("K3", f"{lr.shape[0]} x {lr.shape[1]} points"),
+              lambda: cc.joint_ladder_plain(curve, lr_s[:4 * pre].reshape(pre, 4, 8),
+                                            lr_p[:4 * pre].reshape(pre, 4, C, 8), nbits),
+              coord_err(fp), 3, prefix=pre)
+    lr = lr.reshape(2 * K_BATCH, Wp // 4, C, 8)
+    hold(held, (name, "K3", f"{lr.shape[0]} x {lr.shape[1]} points"),
          lambda: cc.sum_points_grouped(curve, lr), lambda: cc.sum_points_plain(curve, lr),
          affine_err(curve), 20)
+    del lr_p, lr_s, lr
 
     # the bit commitments' points: h·α_k ‖ select(bits, G, −H)
     bits = torch.randint(0, 2, (K_BATCH, mn), generator=gen, device=dev).bool()
     bc = torch.cat([h_alpha[:, None], curve.select(bits, Gv, curve.neg(Hv))], dim=1)
-    hold(held, ("K3", f"{bc.shape[0]} x {bc.shape[1]} points"),
+    hold(held, (name, "K3", f"{bc.shape[0]} x {bc.shape[1]} points"),
          lambda: cc.sum_points_grouped(curve, bc), lambda: cc.sum_points_plain(curve, bc),
          affine_err(curve), 20)
+    del bc
 
     # -- 8. the fixture's statements, proven on the card ----------------------
     t = time.time()
     fix_provers = []
     for k in range(P):
-        wit = random.Random(1000 + k)    # scripts/make_torch_fixtures.py:45-48
+        wit = random.Random(1000 + k)    # scripts/make_torch_fixtures.py::statement
         pr = RangeProver()
         for _ in range(m):
             pr.commit(pk, wit.randrange(1 << n), wit.randrange(1, fn.p))
         fix_provers.append(pr)
     for k, (pr, (comm_bytes, _)) in enumerate(zip(fix_provers, rows)):
-        mine = b"".join(serialize.point_bytes(A) for A in
+        mine = b"".join(serialize.point_bytes(curve, A) for A in
                         curve.decode_points(torch.stack(pr.commitment_vec)))
         if mine != comm_bytes:
             raise AssertionError(f"commitments of fixture statement {k} differ")
@@ -468,41 +458,88 @@ def main() -> int:
     verify(curve, proof1, pk, n, V1[None], DeterministicTranscript(1))
     log(f"m=1 prove ({prove1_ms:.1f} ms) and verify accepted")
 
-    # -- 11. report -----------------------------------------------------------
-    sources = {"K1": ("mont_mul", "mont_mul.cu", "fields/pallas_ops.py:369"),
-               "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
-               "K3": ("sum_points", "sum_points.cu", "curves/pallas_curve.py:553"),
-               "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
-               "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
+    lines = [{"batch_verify": {"curve": name, "K": K_BATCH, "n": n, "m": m,
+                               "first_ms": first_ms, "warm_ms": warm,
+                               "verify_per_s": K_BATCH / best * 1e3,
+                               "single_ms": single_ms}},
+             {"batch_prove": {"curve": name, "K": K_BATCH, "n": n, "m": m,
+                              "first_ms": prove_first_ms, "warm_ms": prove_warm,
+                              "proofs_per_s": K_BATCH / prove_best * 1e3,
+                              "launches": prove_launches,
+                              "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}}]
+    return lines, {"batch_verify": launches, "batch_prove": prove_launches}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+
+    from bulletproofsplus_tpu_torch import kernels
+    from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
+    from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+    from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul
+
+    # -- 1. build + card ---------------------------------------------------
+    t = time.time()
+    kernels.library()
+    log(f"kernels built/loaded in {time.time() - t:.1f} s")
+    for line in kernels.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(line.strip(), file=sys.stderr)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+
+    wrappers = {"K1": mont_mul, "K2": cc.joint_ladder_msm_grouped,
+                "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
+                "K5": cc.ladder_scalar_mul}
+
+    def counted(run, needed):
+        """Run `run` once with every launch counter at 0 just before it;
+        (result, ms, launches). Fails if a kernel of `needed` never ran."""
+        for w in wrappers.values():
+            w.launches = 0
+        out, ms = once_ms(run)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        missing = [k for k in needed if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the path: {missing}")
+        return out, ms, counts
+
+    # held[(curve, kernel, shape)] = (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
+    held, lines, launches = {}, [], {}
+    for i, name in enumerate(CURVE_NAMES):
+        curve_lines, launches[name] = smoke_curve(name, args.seed + 10 * i, held, counted)
+        lines += curve_lines
+
     report = []
-    for (k, shape), (err, ms, plain_ms, (bound_ms, bound_by)) in held.items():
-        name, src, tpu = sources[k]
+    for (name, k, shape), (err, ms, plain_ms, (bound_ms, bound_by)) in held.items():
+        fname, src, tpu = SOURCES[k]
+        by_path = {path: counts[k] for path, counts in launches[name].items()}
         report.append({
-            "name": f"{k} {name} ({shape})", "route": "cuda",
+            "name": f"{k} {fname} ({name}, {shape})", "route": "cuda",
             "source": f"bulletproofsplus_tpu_torch/csrc/{src}",
             "replaces": f"bulletproofsplus_tpu/{tpu}",
-            "launches": launches[k] + prove_launches[k],
-            "launches_by_path": {"batch_verify": launches[k],
-                                 "batch_prove": prove_launches[k]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes Montgomery products on 8×32-bit
-            # limbs or Edwards point ladders and sums
+            # limbs or point ladders and sums on either curve family
             "library_ms": None})
-    print(json.dumps({"batch_verify": {"K": K_BATCH, "n": n, "m": m,
-                                       "first_ms": first_ms, "warm_ms": warm,
-                                       "verify_per_s": K_BATCH / best * 1e3,
-                                       "single_ms": single_ms}}))
-    print(json.dumps({"batch_prove": {"K": K_BATCH, "n": n, "m": m,
-                                      "first_ms": prove_first_ms, "warm_ms": prove_warm,
-                                      "proofs_per_s": K_BATCH / prove_best * 1e3,
-                                      "launches": prove_launches,
-                                      "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}}))
+    for line in lines:
+        print(json.dumps(line))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    log("done")
     return 0
 
 

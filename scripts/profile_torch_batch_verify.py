@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's batch verify or batch prove (K = 256, n = 64,
-m = 16) on a card.
+"""Profile the PyTorch port's batch verify or batch prove (K = 256) on a card,
+on edwards25519 (n = 64, m = 16) or secp256k1 (n = 64, m = 64).
 
-Verify (the default) runs the committed fixture batch (as chip_smoke.py
-does); --prove batch-proves bench.py's K statements (v = (7k + 3i + 2) mod
-2^n, γ = 2i + k + 3) in the deterministic mode. Either runs 3 times warm,
-then once under torch.profiler, and prints, per stage range
-(protocol/batch.py: bpp::exponents, bpp::rlc_merge, bpp::variable_msm,
-bpp::fixed_msm, bpp::identity_check; protocol/batchprove.py and wip.py:
-bpp::bit_commitment, bpp::prove_setup, bpp::fold_round summed over the
-rounds, bpp::final_ab), its host wall time and the device time of the
-kernels it launched; the device busy share of the whole run; the top
-kernels by device time; launch counts; the least time
+n and m are those of the curve's committed fixture. Verify (the default) runs
+the fixture batch (as chip_smoke.py does); --prove batch-proves bench.py's K
+statements (v = (7k + 3i + 2) mod 2^n, γ = 2i + k + 3) in the deterministic
+mode. Either runs 3 times warm, then once under torch.profiler, and prints,
+per stage range (protocol/batch.py: bpp::exponents, bpp::rlc_merge,
+bpp::variable_msm, bpp::fixed_msm, bpp::identity_check; protocol/batchprove.py
+and wip.py: bpp::bit_commitment, bpp::prove_setup, bpp::fold_round summed over
+the rounds, bpp::final_ab), its host wall time and the device time of the
+kernels it launched; the device busy share of the whole run; the top kernels
+by device time; launch counts; the least time
 (bulletproofsplus_tpu_torch/roofline.py) of every hand-written kernel's
-launches in the profiled run, from the sizes each launch was given; and the wall times of the 3 unprofiled warm
-runs (the first includes first-use set-up). Writes the Chrome trace to
---trace, by default bulletproofsplus_tpu_torch/build/profile_trace.json
-(git-ignored) in the checkout.
+launches in the profiled run, from the sizes each launch was given; and the
+wall times of the 3 unprofiled warm runs (the first includes first-use
+set-up). Writes the Chrome trace to --trace, by default
+bulletproofsplus_tpu_torch/build/profile_trace.json (git-ignored) in the
+checkout.
 
-Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove] [--trace PATH]
+Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove]
+       [--curve edwards25519|secp256k1] [--trace PATH]
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
                  "bpp::fixed_msm", "bpp::identity_check")
 PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
                 "bpp::final_ab")
+FIXTURES = {"edwards25519": "ed25519_n64_m16_det.bin",
+            "secp256k1": "secp256k1_n64_m64_det.bin"}
 
 
 def union_us(intervals):
@@ -59,6 +63,7 @@ def main() -> int:
     ap.add_argument("K", type=int, nargs="?", default=256)
     ap.add_argument("--prove", action="store_true",
                     help="profile batch_prove instead of batch_verify")
+    ap.add_argument("--curve", choices=sorted(FIXTURES), default="edwards25519")
     ap.add_argument("--trace", default=os.path.join(ROOT, "bulletproofsplus_tpu_torch",
                                                     "build", "profile_trace.json"),
                     help="where to write the Chrome trace (default: the "
@@ -82,10 +87,10 @@ def main() -> int:
     )
 
     dev = torch.device("cuda:0")
-    curve = curve_ops()
+    curve = curve_ops(args.curve)
     with open(os.path.join(ROOT, "bulletproofsplus_tpu_torch", "data",
-                           "ed25519_n64_m16_det.bin"), "rb") as f:
-        n, m, rows = serialize.read_fixture(f.read())
+                           FIXTURES[args.curve]), "rb") as f:
+        _, n, m, rows = serialize.read_fixture(f.read())
     pk = PublicKey.new(curve, n * m, dev)
     if args.prove:
         stages = PROVE_STAGES
@@ -103,7 +108,7 @@ def main() -> int:
         stages = VERIFY_STAGES
         pk.fixed_tables(n * m)
         decoded = [serialize.proof_from_bytes(curve, w, dev) for _, w in rows]
-        comms = torch.stack([curve.encode_points(serialize.points_from_bytes(c), dev)
+        comms = torch.stack([curve.encode_points(serialize.points_from_bytes(curve, c), dev)
                              for c, _ in rows])
         idx = torch.arange(K, device=dev) % len(rows)
         batch = ProofBatch.from_proofs(decoded).take(idx)
@@ -164,7 +169,8 @@ def main() -> int:
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25),
           file=sys.stderr)
     print(json.dumps({
-        "card": card, "mode": "prove" if args.prove else "verify", "K": K,
+        "card": card, "curve": args.curve, "n": n, "m": m,
+        "mode": "prove" if args.prove else "verify", "K": K,
         "warm_ms_unprofiled": warm_ms, "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / wall_ms,

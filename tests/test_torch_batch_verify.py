@@ -1,4 +1,5 @@
-"""The port's verifier slice against the JAX package and the golden oracle.
+"""The port's verifier slice against the JAX package and the golden oracle, on
+edwards25519 and secp256k1.
 
 Statements are golden-made deterministic-mode proofs at n = 8, m = 2 and
 m = 1 (K = 2). The port's exponent vectors must equal the JAX package's
@@ -7,6 +8,7 @@ accept and reject exactly what golden `protocol.verify` and JAX
 `batch_verify` accept and reject. Comparisons are exact: canonical integers,
 tensors of the port's own layout, or accept/reject polarity."""
 import dataclasses
+import functools
 import random
 
 import jax
@@ -33,6 +35,7 @@ from bulletproofsplus_tpu.protocol.publickey import PublicKey as JaxPublicKey
 from bulletproofsplus_tpu.transcript import DeterministicTranscript as JaxDT
 import bulletproofsplus_tpu_torch as bt
 from bulletproofsplus_tpu_torch import convert, serialize
+from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.errors import FormatError
 from bulletproofsplus_tpu_torch.protocol.range import (
     vinputs_multiple_batched,
@@ -41,7 +44,19 @@ from bulletproofsplus_tpu_torch.protocol.range import (
 
 N = 8
 K = 2
-FIXTURE = "bulletproofsplus_tpu_torch/data/ed25519_n64_m16_det.bin"
+DATA = "bulletproofsplus_tpu_torch/data/"
+
+
+@pytest.fixture(autouse=True)
+def release_jax_executables():
+    """Drop the JAX package's compiled programs after each test. Each
+    XLA:CPU executable holds about a dozen memory maps while a jit cache
+    keeps it, and one process running this file's JAX references passes the
+    kernel's default limit of 65,530 maps (vm.max_map_count) and crashes
+    inside XLA. The persistent compilation cache reloads what a later test
+    needs."""
+    yield
+    jax.clear_caches()
 
 
 def weights(seed):
@@ -49,9 +64,18 @@ def weights(seed):
     return lambda: rnd.getrandbits(128)
 
 
-@pytest.fixture(scope="module")
-def env():
-    return bt.curve_ops(), jax_curve_ops("edwards25519"), CURVES["edwards25519"]
+@functools.lru_cache(maxsize=None)
+def port_pk(name):
+    """One CPU key of 64 generators per curve, longer than every n·m here:
+    verification takes its prefix, and the prefixes share the key's
+    fixed-base tables, so each (curve, n·m) builds its tables once."""
+    return bt.PublicKey.new(bt.curve_ops(name), 64, "cpu")
+
+
+@pytest.fixture(scope="module", params=CURVE_NAMES)
+def env(request):
+    name = request.param
+    return bt.curve_ops(name), jax_curve_ops(name), CURVES[name]
 
 
 def _statements(gc, jc, m):
@@ -79,7 +103,7 @@ def statements(env):
 def port_batch(c, stmts, tamper=False):
     batch = bt.ProofBatch.from_proofs(
         [serialize.proof_from_bytes(c, wire, "cpu") for _, _, wire in stmts])
-    V = torch.stack([c.encode_points(comms) for _, comms, _ in stmts])
+    V = torch.stack([c.encode_points(comms, "cpu") for _, comms, _ in stmts])
     if tamper:
         batch.r_prime = batch.r_prime.clone()
         batch.r_prime[1] = c.fn.add(batch.r_prime[1], c.fn.one("cpu"))
@@ -171,7 +195,7 @@ def test_exponent_vectors_match_jax(env, m):
 def test_batch_verify_polarity_matches_golden(env, statements, m):
     c, _, gc = env
     gpk, stmts = statements[m]
-    pk = bt.PublicKey.new(c, N * m, "cpu")
+    pk = port_pk(c.name)
     for tamper in (False, True):
         assert port_accepts(c, pk, stmts, m, tamper) is not tamper
         assert golden_accepts(gc, gpk, stmts, tamper) is not tamper
@@ -179,7 +203,7 @@ def test_batch_verify_polarity_matches_golden(env, statements, m):
 
 def test_batch_verify_polarity_matches_jax(env, statements, jax_polarity):
     c = env[0]
-    pk = bt.PublicKey.new(c, N * 2, "cpu")
+    pk = port_pk(c.name)
     mine = tuple(port_accepts(c, pk, statements[2][1], 2, tamper)
                  for tamper in (False, True))
     assert mine == jax_polarity == (True, False)
@@ -189,7 +213,7 @@ def test_batch_verify_polarity_matches_jax(env, statements, jax_polarity):
 def test_single_verify_matches_golden(env, statements, m):
     c = env[0]
     _, stmts = statements[m]
-    pk = bt.PublicKey.new(c, 64, "cpu")   # longer than n·m: verify uses the prefix
+    pk = port_pk(c.name)                 # longer than n·m: verify uses the prefix
     batch, V = port_batch(c, stmts)
     bt.verify(c, batch[0], pk, N, V[0], bt.DeterministicTranscript(m))
     bad, _ = port_batch(c, stmts, tamper=True)
@@ -211,10 +235,18 @@ def test_proof_batch_from_jax_equals_port_decode(env, statements):
     assert serialize.proof_to_bytes(c, want[0]) == stmts[0][2]
 
 
-def test_batch_verify_argument_errors(env, statements):
-    c = env[0]
-    batch, V = port_batch(c, statements[2][1])
-    pk = bt.PublicKey.new(c, N * 2, "cpu")
+@pytest.fixture(scope="module")
+def ed_statements():
+    """The m = 2 edwards25519 statements, for the tests that do not depend
+    on the curve."""
+    name = "edwards25519"
+    return bt.curve_ops(name), _statements(CURVES[name], jax_curve_ops(name), 2)[1]
+
+
+def test_batch_verify_argument_errors(ed_statements):
+    c, stmts = ed_statements
+    batch, V = port_batch(c, stmts)
+    pk = port_pk(c.name)
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, N, batch, V[:1], [bt.DeterministicTranscript(2)] * K)
     with pytest.raises(NotImplementedError):
@@ -225,26 +257,72 @@ def test_batch_verify_argument_errors(env, statements):
 
 
 def test_point_decoding_rejects_torsion_and_off_curve():
+    c = bt.curve_ops("edwards25519")
     p = 2**255 - 19
     order2 = (p - 1).to_bytes(32, "little")          # (0, -1): order 2
     with pytest.raises(FormatError):
-        serialize.point_from_bytes(order2)
+        serialize.point_from_bytes(c, order2)
     with pytest.raises(FormatError):                 # y = 2 has no x on the curve
-        serialize.point_from_bytes((2).to_bytes(32, "little"))
-    assert serialize.point_from_bytes(serialize.point_bytes(None)) is None
+        serialize.point_from_bytes(c, (2).to_bytes(32, "little"))
+    assert serialize.point_from_bytes(c, serialize.point_bytes(c, None)) is None
 
 
-def test_committed_fixture_decodes():
-    """The card's statements: ≥ 16 golden proofs at n = 64, m = 16."""
-    c = bt.curve_ops()
-    with open(FIXTURE, "rb") as f:
-        n, m, rows = serialize.read_fixture(f.read())
-    assert (n, m) == (64, 16) and len(rows) >= 16
+def test_secp256k1_point_encoding_matches_jax():
+    """SEC1 compressed points: the round trip and the JAX package's bytes,
+    the identity as 0x00 ‖ 32 zero bytes, and rejection of the 0x04 prefix,
+    x ≥ p, an x whose x³ + 7 is not a square, and a 0x00 prefix with
+    nonzero bytes."""
+    c, jc, gc = bt.curve_ops("secp256k1"), jax_curve_ops("secp256k1"), CURVES["secp256k1"]
+    pts = [gc.mul(gc.base(), k) for k in (1, 2, 3, 5, 1 << 200)] + [None]
+    for A in pts:
+        enc = serialize.point_bytes(c, A)
+        assert enc == jax_serialize.point_bytes(jc, A) and len(enc) == 33
+        assert serialize.point_from_bytes(c, enc) == A
+    assert serialize.point_bytes(c, None) == bytes(33)
+    p = gc.fp.p
+    x = pts[0][0].to_bytes(32, "big")
+    nonres = next(v for v in range(1, 100) if pow(v**3 + 7, (p - 1) // 2, p) != 1)
+    bad = [b"\x04" + x, b"\x02" + p.to_bytes(32, "big"),
+           b"\x03" + ((1 << 256) - 1).to_bytes(32, "big"),
+           b"\x02" + nonres.to_bytes(32, "big"), b"\x00" + bytes(31) + b"\x01",
+           b"\x02" + x[:31]]
+    for data in bad:
+        with pytest.raises(FormatError):
+            serialize.point_from_bytes(c, data)
+        with pytest.raises(Exception):
+            jax_serialize.point_from_bytes(jc, data)
+
+
+@pytest.mark.parametrize("curve,name,shape,rounds", [
+    ("edwards25519", "ed25519_n64_m16_det.bin", (64, 16, 16), 10),
+    ("secp256k1", "secp256k1_n64_m64_det.bin", (64, 64, 8), 12)])
+def test_committed_fixture_decodes(curve, name, shape, rounds):
+    """The card's statements: 16 golden proofs at n = 64, m = 16
+    (edwards25519, format BPPF1) and 8 at n = 64, m = 64 (secp256k1,
+    BPPF2), each decoded by the port and re-encoded to the same bytes."""
+    c = bt.curve_ops(curve)
+    with open(DATA + name, "rb") as f:
+        got_curve, n, m, rows = serialize.read_fixture(f.read())
+    assert got_curve == curve and (n, m, len(rows)) == shape
     comms, wire = rows[0]
     proof = serialize.proof_from_bytes(c, wire, "cpu")
-    assert proof.proof.rounds == 10
-    assert len(serialize.points_from_bytes(comms)) == m
+    assert proof.proof.rounds == rounds
+    V = serialize.points_from_bytes(c, comms)
+    assert len(V) == m and all(A is not None for A in V)
+    assert b"".join(serialize.point_bytes(c, A) for A in V) == comms
     assert serialize.proof_to_bytes(c, proof) == wire
+
+
+def test_fixture_formats_reject_garbage():
+    with pytest.raises(FormatError):
+        serialize.read_fixture(b"BPPF3" + bytes(10))
+    name = b"secp256k1"
+    head = b"BPPF2" + bytes([len(name)]) + name + (8).to_bytes(2, "big") * 2
+    assert serialize.read_fixture(head + bytes(2)) == ("secp256k1", 8, 8, [])
+    with pytest.raises(FormatError):
+        serialize.read_fixture(head + bytes(3))
+    with pytest.raises(FormatError):
+        serialize.read_fixture(head[:-1])
 
 
 class _ZeroRoundTranscript(bt.DeterministicTranscript):
@@ -252,10 +330,10 @@ class _ZeroRoundTranscript(bt.DeterministicTranscript):
         return 0
 
 
-def test_zero_challenge_rejected_by_replay(env, statements):
+def test_zero_challenge_rejected_by_replay(ed_statements):
     """The host replay rejects a zero challenge (range.py:392)."""
-    c = env[0]
-    batch, V = port_batch(c, statements[2][1])
-    pk = bt.PublicKey.new(c, N * 2, "cpu")
+    c, stmts = ed_statements
+    batch, V = port_batch(c, stmts)
+    pk = port_pk(c.name)
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, N, batch, V, [_ZeroRoundTranscript(2)] * K)

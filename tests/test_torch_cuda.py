@@ -1,5 +1,5 @@
-"""Kernels K1–K5 against their plain versions, and the port's prover and
-verifier, on an NVIDIA card.
+"""Kernels K1–K5 against their plain versions, both point families, and the
+port's prover and verifier on edwards25519 and secp256k1, on an NVIDIA card.
 
 Marked `cuda`: every test skips where torch sees no CUDA device (it decides
 inside the test, so every worker collects the same tests). This file
@@ -16,14 +16,16 @@ import torch
 
 import bulletproofsplus_tpu_torch as bt
 from bulletproofsplus_tpu_torch import serialize
+from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
-from bulletproofsplus_tpu_torch.curves import host
 from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
 from bulletproofsplus_tpu_torch.msm.fixed import precompute_tables, precompute_tables_signed
 
 pytestmark = pytest.mark.cuda
-FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "bulletproofsplus_tpu_torch", "data", "ed25519_n64_m16_det.bin")
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "bulletproofsplus_tpu_torch", "data")
+FIXTURES = {"edwards25519": os.path.join(DATA, "ed25519_n64_m16_det.bin"),
+            "secp256k1": os.path.join(DATA, "secp256k1_n64_m64_det.bin")}
 
 
 @pytest.fixture
@@ -33,24 +35,32 @@ def dev():
     return torch.device("cuda:0")
 
 
-def points(count, seed, device):
+def points(c, count, seed, device):
+    hc = c.host
     rnd = random.Random(seed)
-    B = host.to_ext(host.BASE)
-    step = host.ext_mul(B, rnd.randrange(1, 1 << 64))
-    cur = host.ext_mul(B, rnd.randrange(1, 1 << 64))
+    B = hc.lift(hc.base)
+    step = hc.mul(B, rnd.randrange(1, 1 << 64))
+    cur = hc.mul(B, rnd.randrange(1, 1 << 64))
     out = []
     for _ in range(count):
         out.append(cur)
-        cur = host.ext_add(cur, step)
-    return bt.curve_ops().encode_points(host.to_affine(out), device)
+        cur = hc.add(cur, step)
+    return c.encode_points(hc.to_affine(out), device)
+
+
+@pytest.fixture(params=CURVE_NAMES)
+def c(request):
+    return bt.curve_ops(request.param)
 
 
 @pytest.mark.parametrize("which", ["fp", "fn"])
-def test_k1_kernel_matches_plain(dev, which):
-    f = getattr(bt.curve_ops(), which)
+def test_k1_kernel_matches_plain(dev, c, which):
+    f = getattr(c, which)
     rnd = random.Random(1)
-    xs = [rnd.randrange(f.p) for _ in range(997)] + [0, 1, f.p - 1]
-    ys = [rnd.randrange(f.p) for _ in range(997)] + [f.p - 1, f.p - 1, f.p - 1]
+    xs = ([rnd.randrange(f.p) for _ in range(497)] + [0, 1, f.p - 1]
+          + [rnd.randrange(f.p // 2, f.p) for _ in range(500)])
+    ys = ([rnd.randrange(f.p) for _ in range(497)] + [f.p - 1, f.p - 1, f.p - 1]
+          + [rnd.randrange(f.p // 2, f.p) for _ in range(500)])
     a, b = f.encode(xs, dev), f.encode(ys, dev)
     before = mont_mul.launches
     got = mont_mul(a, b, f.spec)
@@ -60,47 +70,52 @@ def test_k1_kernel_matches_plain(dev, which):
 
 
 @pytest.mark.parametrize("jway", [1, 2, 4, 8])
-def test_k2_kernel_matches_plain(dev, jway):
-    c = bt.curve_ops()
+def test_k2_kernel_matches_plain(dev, c, jway):
     G = 37
     rnd = random.Random(jway)
-    P = points(G * jway, jway, dev)
-    s = c.fn.encode_plain([rnd.randrange(c.fn.p) for _ in range(G * jway)], dev)
-    got = cc.joint_ladder_msm_grouped(c, s, P, 253, jway)
-    want = cc.joint_ladder_plain(c, s.reshape(G, jway, 8), P.reshape(G, jway, 4, 8), 253)
+    P = points(c, G * jway, jway, dev)
+    P[1] = c.identity(dev)
+    s = c.fn.encode_plain([0] + [rnd.randrange(c.fn.p) for _ in range(G * jway - 1)], dev)
+    nbits = c.fn.order_bits
+    got = cc.joint_ladder_msm_grouped(c, s, P, nbits, jway)
+    want = cc.joint_ladder_plain(c, s.reshape(G, jway, 8),
+                                 P.reshape(G, jway, c.COORDS, 8), nbits)
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("W", [1, 300, 1000])
-def test_k3_kernel_matches_plain(dev, W):
-    c = bt.curve_ops()
-    P = points(3 * W, W, dev).reshape(3, W, 4, 8)
+def test_k3_kernel_matches_plain(dev, c, W):
+    P = points(c, 3 * W, W, dev).reshape(3, W, c.COORDS, 8)
     assert c.decode_points(cc.sum_points_grouped(c, P)) == c.decode_points(
         cc.sum_points_plain(c, P))
 
 
 @pytest.mark.parametrize("signed", [False, True])
-def test_k4_kernel_matches_plain(dev, signed):
-    c = bt.curve_ops()
+def test_k4_kernel_matches_plain(dev, c, signed):
     rnd = random.Random(4)
-    P = points(24, 5, dev)
+    P = points(c, 24, 5, dev)
     table = (precompute_tables_signed if signed else precompute_tables)(c, P)
     s = c.fn.encode_plain([rnd.randrange(c.fn.p) for _ in range(24)], dev)
-    dig = cc.fixed_digits(c, s, 253, signed)
+    dig = cc.fixed_digits(c, s, c.fn.order_bits, signed)
     parts = cc.fixed_lookup_partials(c, table, dig, signed)
     got = cc.sum_points_plain(c, parts[None])
     assert c.decode_points(got) == c.decode_points(
         cc.fixed_lookup_plain(c, table, dig, signed))
 
 
-def test_batch_verify_on_card(dev):
-    c = bt.curve_ops()
-    with open(FIXTURE, "rb") as f:
-        n, m, rows = serialize.read_fixture(f.read())
+def read_fixture(c):
+    with open(FIXTURES[c.name], "rb") as f:
+        name, n, m, rows = serialize.read_fixture(f.read())
+    assert name == c.name
+    return n, m, rows
+
+
+def test_batch_verify_on_card(dev, c):
+    n, m, rows = read_fixture(c)
     rows = rows[:4]
     batch = bt.ProofBatch.from_proofs(
         [serialize.proof_from_bytes(c, wire, dev) for _, wire in rows])
-    V = torch.stack([c.encode_points(serialize.points_from_bytes(cm), dev)
+    V = torch.stack([c.encode_points(serialize.points_from_bytes(c, cm), dev)
                      for cm, _ in rows])
     pk = bt.PublicKey.new(c, n * m, dev)
     trs = [bt.DeterministicTranscript(m)] * len(rows)
@@ -111,38 +126,38 @@ def test_batch_verify_on_card(dev):
         bt.batch_verify(c, pk, n, batch, V, trs)
 
 
-def test_k5_kernel_matches_plain(dev):
-    c = bt.curve_ops()
+def test_k5_kernel_matches_plain(dev, c):
     rnd = random.Random(5)
-    P = points(37, 5, dev)
+    P = points(c, 37, 5, dev)
     P[3] = c.identity(dev)
     s = c.fn.encode_plain([0] + [rnd.randrange(c.fn.p) for _ in range(36)], dev)
+    nbits = c.fn.order_bits
     before = cc.ladder_scalar_mul.launches
-    got = cc.ladder_scalar_mul(c, s, P, 253)
+    got = cc.ladder_scalar_mul(c, s, P, nbits)
     assert cc.ladder_scalar_mul.launches == before + 1
-    assert torch.equal(got, cc.ladder_plain(c, s, P, 253))
+    assert torch.equal(got, cc.ladder_plain(c, s, P, nbits))
 
 
-def fixture_provers(pk, n, m, count):
-    """The first `count` fixture witnesses (scripts/make_torch_fixtures.py:45-48)."""
+def fixture_provers(c, pk, n, m, count):
+    """The first `count` fixture witnesses (scripts/make_torch_fixtures.py:
+    statement k's from random.Random(1000 + k))."""
     provers = []
     for k in range(count):
         wit = random.Random(1000 + k)
         p = bt.RangeProver()
         for _ in range(m):
-            p.commit(pk, wit.randrange(1 << n), wit.randrange(1, bt.curve_ops().fn.p))
+            p.commit(pk, wit.randrange(1 << n), wit.randrange(1, c.fn.p))
         provers.append(p)
     return provers
 
 
 def test_batch_prove_on_card_equals_fixture(dev):
-    """Two fixture witnesses, proven on the card, give the committed
-    golden-made bytes."""
-    c = bt.curve_ops()
-    with open(FIXTURE, "rb") as f:
-        n, m, rows = serialize.read_fixture(f.read())
+    """Two edwards25519 fixture witnesses, proven on the card, give the
+    committed golden-made bytes."""
+    c = bt.curve_ops("edwards25519")
+    n, m, rows = read_fixture(c)
     pk = bt.PublicKey.new(c, n * m, dev)
-    provers = fixture_provers(pk, n, m, 2)
+    provers = fixture_provers(c, pk, n, m, 2)
     batch = bt.batch_prove(c, pk, n, provers, [bt.DeterministicTranscript(m)] * 2,
                            [bt.DeterministicRng(m)] * 2)
     assert batch.A.device.type == "cuda"
@@ -150,14 +165,12 @@ def test_batch_prove_on_card_equals_fixture(dev):
         wire for _, wire in rows[:2]]
 
 
-def test_prove_on_card_equals_fixture(dev):
+def test_prove_on_card_equals_fixture(dev, c):
     """`prove`, the K = 1 batch, on the card: the first fixture statement's
     bytes, and its own verify accepts."""
-    c = bt.curve_ops()
-    with open(FIXTURE, "rb") as f:
-        n, m, rows = serialize.read_fixture(f.read())
+    n, m, rows = read_fixture(c)
     pk = bt.PublicKey.new(c, n * m, dev)
-    (prover,) = fixture_provers(pk, n, m, 1)
+    (prover,) = fixture_provers(c, pk, n, m, 1)
     proof = bt.prove(c, pk, n, prover, bt.DeterministicTranscript(m), bt.DeterministicRng(m))
     assert serialize.proof_to_bytes(c, proof) == rows[0][1]
     bt.verify(c, proof, pk, n, torch.stack(prover.commitment_vec),

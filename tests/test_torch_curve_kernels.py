@@ -1,9 +1,18 @@
 """The port's point layer and the plain versions of kernels K2–K4 against the
-JAX package's curve ops and its Pallas kernels in interpret mode.
+JAX package's curve ops, its Pallas kernels in interpret mode and the golden
+oracle, on both point families: edwards25519 (extended Edwards) and
+secp256k1 (projective Weierstrass, the `_wadd`/`_wdbl` bodies of the TPU
+kernels).
 
 Points are compared as decoded affine tuples (canonical integers); scalars
 come from a numpy seed. nbits = 16 keeps the interpret-mode ladders short,
-as tests/test_pallas.py does."""
+as tests/test_pallas.py does. A Weierstrass Pallas kernel costs 50 s (K2 at
+J = 2) to over 15 minutes (K3) in interpret mode on a CPU, against 30-70 s
+for Edwards, so the Weierstrass form meets the interpret-mode K2 at J = 2
+and otherwise golden, which tests/test_pallas.py holds the Weierstrass
+Pallas kernels to on the same kind of inputs."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +32,7 @@ from bulletproofsplus_tpu.msm.fixed import (
 )
 from bulletproofsplus_tpu.protocol.publickey import PublicKey as JaxPublicKey
 from bulletproofsplus_tpu_torch import PublicKey, convert
+from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
 from bulletproofsplus_tpu_torch.curves import curve_ops
 from bulletproofsplus_tpu_torch.msm import msm, scalar_mul, tree_sum
@@ -34,13 +44,18 @@ from bulletproofsplus_tpu_torch.msm.fixed import (
     table_bytes,
 )
 
-NAME = "edwards25519"
 NBITS = 16
 
 
-@pytest.fixture(scope="module")
-def curves():
-    return curve_ops(), jax_curve_ops(NAME), golden_curve(NAME)
+@functools.lru_cache(maxsize=None)
+def triple(name):
+    """(port curve, JAX curve, golden curve)."""
+    return curve_ops(name), jax_curve_ops(name), golden_curve(name)
+
+
+@pytest.fixture(scope="module", params=CURVE_NAMES)
+def curves(request):
+    return triple(request.param)
 
 
 def golden_points(gc, count, start):
@@ -54,23 +69,36 @@ def scalars(seed, count, nbits=NBITS):
     return ks + [0, 1]
 
 
+def golden_msm(gc, ks, pts):
+    acc = None
+    for k, p in zip(ks, pts):
+        acc = gc.add(acc, gc.mul(p, k))
+    return acc
+
+
 def test_point_ops_match_jax(curves):
+    """add, dbl and neg against the JAX curve ops and golden, as affine
+    integers: the identity on either side, P + P, and P + (−P)."""
     c, jc, gc = curves
-    pts = golden_points(gc, 6, 3) + [None]
-    qts = golden_points(gc, 6, 11) + [gc.base()]
+    pts = golden_points(gc, 6, 3) + [None, None, gc.mul(gc.base(), 9)]
+    qts = golden_points(gc, 6, 11) + [gc.base(), None, gc.mul(gc.base(), 9)]
     P, Q = c.encode_points(pts), c.encode_points(qts)
     jP, jQ = jnp.asarray(jc.encode_points(pts)), jnp.asarray(jc.encode_points(qts))
+    assert P.shape == (9, c.COORDS, 8)
     assert c.decode_points(c.add(P, Q)) == jc.decode_points(jc.add(jP, jQ))
     assert c.decode_points(c.dbl(P)) == jc.decode_points(jc.dbl(jP))
     assert c.decode_points(c.neg(P)) == jc.decode_points(jc.neg(jP))
     assert c.decode_points(c.add(P, Q)) == [gc.add(a, b) for a, b in zip(pts, qts)]
+    assert c.decode_points(c.add(P, P)) == c.decode_points(c.dbl(P)) == [
+        gc.add(a, a) for a in pts]
     ident = c.is_identity(c.add(P, c.neg(P)))
-    assert bool(ident.all()) and not bool(c.is_identity(Q).any())
+    assert bool(ident.all()) and not bool(c.is_identity(Q[:7]).any())
 
 
-@pytest.mark.parametrize("jway", [2, 4])
-def test_k2_plain_matches_pallas_joint_ladder(curves, jway):
-    c, jc, gc = curves
+@pytest.mark.parametrize("name,jway", [("edwards25519", 2), ("edwards25519", 4),
+                                       ("secp256k1", 2)])
+def test_k2_plain_matches_pallas_joint_ladder(name, jway):
+    c, jc, gc = triple(name)
     N = 2 * jway
     ks = scalars(jway, N)
     pts = golden_points(gc, N, 3)
@@ -80,25 +108,27 @@ def test_k2_plain_matches_pallas_joint_ladder(curves, jway):
     want = jax_joint_ladder(jc, jnp.asarray(jc.fn.encode_plain(ks)),
                             jnp.asarray(jc.encode_points(pts)), NBITS, jway,
                             interpret=True)
-    assert got.shape == (2, 4, 8)
-    assert c.decode_points(got) == jc.decode_points(want)
+    assert got.shape == (2, c.COORDS, 8)
+    assert c.decode_points(got) == jc.decode_points(want) == [
+        golden_msm(gc, ks[g * jway:(g + 1) * jway], pts[g * jway:(g + 1) * jway])
+        for g in range(2)]
     assert cc.joint_ladder_msm_grouped.launches == before
 
 
-def test_k3_plain_matches_pallas_sum_points(curves):
-    c, jc, gc = curves
+def test_k3_plain_matches_pallas_sum_points():
+    c, jc, gc = triple("edwards25519")
     pts = golden_points(gc, 6, 1) + [None, None]
-    P = c.encode_points(pts).reshape(2, 4, 4, 8)
-    jP = jnp.asarray(jc.encode_points(pts)).reshape(2, 4, 4, -1)
+    P = c.encode_points(pts).reshape(2, 4, c.COORDS, 8)
+    jP = jnp.asarray(jc.encode_points(pts)).reshape(2, 4, c.COORDS, -1)
     got = cc.sum_points_grouped(c, P)
-    assert got.shape == (2, 4, 8)
+    assert got.shape == (2, c.COORDS, 8)
     assert c.decode_points(got) == jc.decode_points(jax_sum_points(jc, jP, interpret=True))
     assert c.decode_points(tree_sum(c, P[:, :0])) == [None] * 2
 
 
 @pytest.mark.parametrize("signed", [False, True])
-def test_k4_plain_matches_pallas_fixed_lookup(curves, signed):
-    c, jc, gc = curves
+def test_k4_plain_matches_pallas_fixed_lookup(signed):
+    c, jc, gc = triple("edwards25519")
     N = 6
     ks = scalars(20 + signed, N)
     pts = golden_points(gc, N, 2)
@@ -111,15 +141,35 @@ def test_k4_plain_matches_pallas_fixed_lookup(curves, signed):
                                                   NBITS))
     want = jax_fixed_msm_kernel(jc, jnp.asarray(jc.fn.encode_plain(ks)), jtable, NBITS,
                                 signed=signed, interpret=True)
-    expect = None
-    for k, p in zip(ks, pts):
-        expect = gc.add(expect, gc.mul(p, k))
-    assert c.decode_point(got) == jc.decode_point(want) == expect
+    assert c.decode_point(got) == jc.decode_point(want) == golden_msm(gc, ks, pts)
+
+
+def test_plain_kernels_match_golden(curves):
+    """The plain K2 (J = 4, zero-scalar identity padding), K3 (identity
+    points, one empty group), K4 (unsigned and signed tables) and K5 of
+    either family against golden at nbits = 16."""
+    c, _, gc = curves
+    ks = scalars(40, 8)
+    pts = golden_points(gc, 6, 5) + [None, None]
+    P, s = c.encode_points(pts), c.fn.encode_plain(ks)
+    got = cc.joint_ladder_msm_grouped(c, s, P, NBITS, 4)
+    assert c.decode_points(got) == [golden_msm(gc, ks[:4], pts[:4]),
+                                    golden_msm(gc, ks[4:], pts[4:])]
+    sums = cc.sum_points_grouped(c, P.reshape(2, 4, c.COORDS, 8))
+    assert c.decode_points(sums) == [golden_msm(gc, [1] * 4, pts[:4]),
+                                     golden_msm(gc, [1] * 4, pts[4:])]
+    assert c.decode_points(tree_sum(c, P.reshape(2, 4, c.COORDS, 8)[:, :0])) == [None] * 2
+    for build in (precompute_tables, precompute_tables_signed):
+        table = build(c, P[:6], NBITS)
+        got = fixed_msm(c, s[:6], table, NBITS)
+        assert c.decode_point(got) == golden_msm(gc, ks[:6], pts[:6])
+    got = cc.ladder_scalar_mul(c, s, P, NBITS)
+    assert c.decode_points(got) == [gc.mul(p, k) for k, p in zip(ks, pts)]
 
 
 def test_msm_and_scalar_mul_match_golden(curves):
     c, _, gc = curves
-    ks = scalars(30, 5, nbits=253)
+    ks = scalars(30, 5, nbits=c.fn.order_bits)
     pts = golden_points(gc, 5, 7)
     want = None
     for k, p in zip(ks, pts):
@@ -132,11 +182,16 @@ def test_msm_and_scalar_mul_match_golden(curves):
 
 
 def test_fixed_base_mode_budget(curves):
+    """268 MB at edwards25519's 2mn = 2048; 805 MB at secp256k1's 2mn =
+    8192 (96-byte points), both unsigned under the 7 GiB budget."""
     c = curves[0]
-    assert table_bytes(c, 2048) == 16 * 64 * 2048 * 128  # 268 MB at 2mn = 2048
-    assert fixed_base_mode(c, 2048) == "unsigned"
-    assert fixed_base_mode(c, 2048, max_bytes=table_bytes(c, 2048) - 1) == "signed"
-    assert fixed_base_mode(c, 2048, max_bytes=1) is None
+    N, point = {"edwards25519": (2048, 128), "secp256k1": (8192, 96)}[c.name]
+    assert table_bytes(c, N) == 16 * 64 * N * point
+    nwin = c.fn.signed_window_count(c.fn.order_bits)     # 64 for 253 bits, 65 for 256
+    assert table_bytes(c, N, signed=True) == 8 * nwin * N * point
+    assert fixed_base_mode(c, N) == "unsigned"
+    assert fixed_base_mode(c, N, max_bytes=table_bytes(c, N) - 1) == "signed"
+    assert fixed_base_mode(c, N, max_bytes=1) is None
 
 
 def test_publickey_from_jax_equals_port(curves):
@@ -146,3 +201,21 @@ def test_publickey_from_jax_equals_port(curves):
     pk = PublicKey.new(c, 16, "cpu")
     for name in ("g", "h", "G_vec", "H_vec"):
         assert torch.equal(getattr(got, name), getattr(pk, name)), name
+
+
+def test_kernel_entry_points_per_family():
+    """Each point kernel has one entry point per family; launching any other
+    name raises before the library is touched, and the roofline reads the
+    family's products and point size off the name."""
+    from bulletproofsplus_tpu_torch import kernels, roofline
+
+    for kernel in ("joint_ladder", "sum_points", "fixed_lookup", "ladder"):
+        for name in CURVE_NAMES:
+            assert f"bpp_{kernel}_{curve_ops(name).FAMILY}" in kernels.SIGNATURES
+    with pytest.raises(ValueError, match="no kernel entry point"):
+        kernels.launch("bpp_joint_ladder_montgomery", device="cpu")
+    args = (0, 0, 0, 10, 8, 64, None)        # 10 groups, J = 8, 64 windows
+    ed = roofline.launch_work("bpp_joint_ladder_edwards", args)
+    wei = roofline.launch_work("bpp_joint_ladder_weierstrass", args)
+    assert ed == (10 * 8 * 160 + 10 * 128, 10 * (8 * 14 * 9 + 64 * (4 * 8 + 8 * 9)))
+    assert wei == (10 * 8 * 128 + 10 * 96, 10 * (8 * 14 * 14 + 64 * (4 * 9 + 8 * 14)))

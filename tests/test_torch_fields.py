@@ -17,7 +17,7 @@ from bulletproofsplus_tpu.curves import curve_ops as jax_curve_ops
 from bulletproofsplus_tpu.fields import ALL_SPECS, field_ops
 from bulletproofsplus_tpu.fields.pallas_ops import mont_mul as pallas_mont_mul
 from bulletproofsplus_tpu_torch import convert
-from bulletproofsplus_tpu_torch.curves import curve_ops
+from bulletproofsplus_tpu_torch.curves import CURVE_NAMES, curve_ops
 from bulletproofsplus_tpu_torch.fields.mont_mul import (
     _norm16,
     _resolve,
@@ -36,30 +36,45 @@ def rand_ints(seed, count, p):
     return [int.from_bytes(rng.bytes(40), "little") % p for _ in range(count)]
 
 
-def pair(which):
-    """(port FieldOps, JAX FieldOps) of edwards25519's base or scalar field."""
-    return getattr(curve_ops(), which), getattr(jax_curve_ops("edwards25519"), which)
+def upper_half(seed, count, p):
+    """Random values in [p/2, p): their sums pass p, and for a modulus above
+    2^255 (secp256k1) also 2^256."""
+    return [p // 2 + x for x in rand_ints(seed, count, p - p // 2)]
 
 
+def pair(which, curve="edwards25519"):
+    """(port FieldOps, JAX FieldOps) of a curve's base or scalar field."""
+    return getattr(curve_ops(curve), which), getattr(jax_curve_ops(curve), which)
+
+
+@pytest.mark.parametrize("curve", CURVE_NAMES)
 @pytest.mark.parametrize("which", FIELDS)
-def test_ring_ops_match_jax(which):
-    f, jf = pair(which)
+def test_ring_ops_match_jax(which, curve):
+    """Against the JAX FieldOps and Python ints, on p − 1, p − 2,
+    2^256 − 1 − p and random pairs from [p/2, p)."""
+    f, jf = pair(which, curve)
     p = f.p
-    xs = rand_ints(1, 12, p) + [0, 1, p - 1, p - 1]
-    ys = rand_ints(2, 12, p) + [p - 1, 0, p - 1, 1]
+    edge = [p - 1, p - 2, ((1 << 256) - 1 - p) % p]
+    xs = rand_ints(1, 12, p) + [0, 1, p - 1, p - 1] + edge * 3 + upper_half(3, 24, p)
+    ys = rand_ints(2, 12, p) + [p - 1, 0, p - 1, 1] + edge + edge[::-1] + [1, 2, 3] \
+        + upper_half(4, 24, p)
     a, b = f.encode(xs), f.encode(ys)
     ja, jb = jnp.asarray(jf.encode(xs)), jnp.asarray(jf.encode(ys))
+    want = {"mul": [x * y % p for x, y in zip(xs, ys)],
+            "add": [(x + y) % p for x, y in zip(xs, ys)],
+            "sub": [(x - y) % p for x, y in zip(xs, ys)]}
     for op in ("mul", "add", "sub"):
         got = f.decode(getattr(f, op)(a, b))
-        assert got == jf.decode(getattr(jf, op)(ja, jb)), op
+        assert got == jf.decode(getattr(jf, op)(ja, jb)) == want[op], op
     assert f.decode(f.neg(a)) == jf.decode(jf.neg(ja))
     assert f.decode_plain(f.from_mont(a)) == jf.decode_plain(jf.from_mont(ja))
     assert f.decode(f.to_mont(f.from_mont(a))) == xs
 
 
+@pytest.mark.parametrize("curve", CURVE_NAMES)
 @pytest.mark.parametrize("which", FIELDS)
-def test_batch_invert_and_powers_match_jax(which):
-    f, jf = pair(which)
+def test_batch_invert_and_powers_match_jax(which, curve):
+    f, jf = pair(which, curve)
     p = f.p
     xs = rand_ints(3, 10, p)
     a = f.encode(xs).reshape(2, 5, 8)
@@ -75,9 +90,12 @@ def test_batch_invert_and_powers_match_jax(which):
     assert f.decode(f.pow_const(f.encode(xs[1]), 12345)) == pow(xs[1], 12345, p)
 
 
-@pytest.mark.parametrize("nbits", [16, 253])
-def test_scalar_digits_match_jax(nbits):
-    f, jf = pair("fn")
+@pytest.mark.parametrize("curve,nbits", [("edwards25519", 16), ("edwards25519", 253),
+                                         ("secp256k1", 256)])
+def test_scalar_digits_match_jax(curve, nbits):
+    """253 and 256 bits are the two curves' order widths: 64 windows, and 64
+    or 65 signed windows."""
+    f, jf = pair("fn", curve)
     ks = rand_ints(4, 8, 1 << nbits) + [0, (1 << nbits) - 1]
     s, js = f.encode_plain(ks), jnp.asarray(jf.encode_plain(ks))
     got = f.scalar_digits(s, nbits)
@@ -89,15 +107,18 @@ def test_scalar_digits_match_jax(nbits):
     assert f.signed_window_count(nbits) == jf.signed_window_count(nbits)
 
 
-@pytest.mark.parametrize("name", ["ed25519_fp", "ed25519_fl"])
-def test_k1_plain_matches_pallas_interpret(name):
+@pytest.mark.parametrize("curve,which,name", [
+    ("edwards25519", "fp", "ed25519_fp"), ("edwards25519", "fn", "ed25519_fl"),
+    ("secp256k1", "fp", "secp256k1_fp"), ("secp256k1", "fn", "secp256k1_fn")])
+def test_k1_plain_matches_pallas_interpret(curve, which, name):
     """K1's plain version against the TPU kernel it replaces, run in Pallas
     interpret mode on the 12-bit layout (as tests/test_pallas.py does)."""
     ops = field_ops(ALL_SPECS[name])
-    f = curve_ops().fp if name == "ed25519_fp" else curve_ops().fn
+    f = getattr(curve_ops(curve), which)
     p = ops.p
-    xs = rand_ints(5, 20, p) + [0, 1, p - 1, p - 2]
-    ys = rand_ints(6, 20, p) + [p - 1, 1, p - 1, 2]
+    assert f.p == p
+    xs = rand_ints(5, 20, p) + [0, 1, p - 1, p - 2] + upper_half(7, 8, p)
+    ys = rand_ints(6, 20, p) + [p - 1, 1, p - 1, 2] + upper_half(8, 8, p)
     want = ops.decode(pallas_mont_mul(ops, jnp.asarray(ops.encode(xs)),
                                       jnp.asarray(ops.encode(ys)), interpret=True))
     before = mont_mul.launches
@@ -119,11 +140,12 @@ def carry_patterns(p):
     return out + rand_ints(11, 4, 1 << 256)
 
 
+@pytest.mark.parametrize("curve", CURVE_NAMES)
 @pytest.mark.parametrize("which", FIELDS)
-def test_carry32_on_carry_runs(which):
+def test_carry32_on_carry_runs(which, curve):
     """Every pair of patterns, summed and subtracted limb by limb, against
     Python ints mod 2^256 with the carry (1) or borrow (−1) out."""
-    vals = carry_patterns(pair(which)[0].p)
+    vals = carry_patterns(pair(which, curve)[0].p)
     xs = [x for x in vals for _ in vals]
     ys = [y for _ in vals for y in vals]
     a = torch.tensor([int_to_words(x) for x in xs], dtype=torch.int64)
@@ -161,18 +183,25 @@ def test_norm16_on_carry_runs(bits):
         _resolve(torch.zeros(1, 63, dtype=torch.bool), torch.zeros(1, 63, dtype=torch.bool))
 
 
+@pytest.mark.parametrize("curve", CURVE_NAMES)
 @pytest.mark.parametrize("which", FIELDS)
-def test_mont_mul_plain_on_carry_runs(which):
-    """K1's plain version on the carry patterns reduced mod p (p − 1, long
-    one and zero runs) against a·b·2^−256 mod p."""
-    f = pair(which)[0]
+def test_mont_mul_plain_on_carry_runs(which, curve):
+    """K1's plain version and the plain add on the carry patterns reduced
+    mod p (p − 1, p − 2, 2^256 − 1 − p, long one and zero runs) and values
+    from [p/2, p), against a·b·2^−256 mod p and a + b mod p. Above 2^255
+    (secp256k1) T + m·p passes 2^512 and a + b passes 2^256."""
+    f = pair(which, curve)[0]
     p = f.p
-    vals = sorted({v % p for v in carry_patterns(p)} | {p - 1, p - 2, (1 << 256) % p})
+    vals = sorted({v % p for v in carry_patterns(p)}
+                  | {p - 1, p - 2, (1 << 256) % p, ((1 << 256) - 1 - p) % p}
+                  | set(upper_half(13, 8, p)))
     xs = [x for x in vals for _ in vals]
     ys = [y for _ in vals for y in vals]
-    got = mont_mul_plain(f.encode_plain(xs), f.encode_plain(ys), f.spec)
+    a, b = f.encode_plain(xs), f.encode_plain(ys)
     rinv = pow(1 << 256, -1, p)
-    assert f.decode_plain(got) == [x * y * rinv % p for x, y in zip(xs, ys)]
+    assert f.decode_plain(mont_mul_plain(a, b, f.spec)) == [
+        x * y * rinv % p for x, y in zip(xs, ys)]
+    assert f.decode_plain(f.plain.add(a, b)) == [(x + y) % p for x, y in zip(xs, ys)]
 
 
 def test_k1_broadcasts_like_pallas_wrapper():
@@ -211,9 +240,9 @@ def test_port_imports_without_jax():
             "sys.modules['bulletproofsplus_tpu'] = None; "
             "import bulletproofsplus_tpu_torch as bt; "
             "import bulletproofsplus_tpu_torch.convert, bulletproofsplus_tpu_torch.kernels; "
-            "print(bt.curve_ops().name)")
+            "print(bt.curve_ops().name, bt.curve_ops('secp256k1').COORDS)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "edwards25519"
+    assert res.stdout.strip() == "edwards25519 3"

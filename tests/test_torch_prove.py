@@ -1,4 +1,5 @@
-"""The port's prover slice against the JAX package and the golden oracle.
+"""The port's prover slice against the JAX package and the golden oracle, on
+edwards25519 and secp256k1.
 
 Statements sit at n = 8, m ∈ {1, 2}, K = 2, with witnesses from a numpy
 seed. The port's K5 plain version must equal the JAX Pallas ladder in
@@ -46,6 +47,7 @@ from bulletproofsplus_tpu.transcript import DeterministicTranscript as JaxDT
 from bulletproofsplus_tpu.transcript import SystemRng as JaxSystemRng
 import bulletproofsplus_tpu_torch as bt
 from bulletproofsplus_tpu_torch import convert, serialize
+from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
 from bulletproofsplus_tpu_torch.errors import InvalidBitsize
 from bulletproofsplus_tpu_torch.protocol import batchprove
@@ -63,9 +65,22 @@ FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
                        "bulletproofsplus_tpu_torch", "data", "ed25519_n64_m16_det.bin")
 
 
-@pytest.fixture(scope="module")
-def env():
-    return bt.curve_ops(), jax_curve_ops("edwards25519"), CURVES["edwards25519"]
+@pytest.fixture(autouse=True)
+def release_jax_executables():
+    """Drop the JAX package's compiled programs after each test. Each
+    XLA:CPU executable holds about a dozen memory maps while a jit cache
+    keeps it, and one process running this file's JAX references passes the
+    kernel's default limit of 65,530 maps (vm.max_map_count) and crashes
+    inside XLA. The persistent compilation cache reloads what a later test
+    needs."""
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(scope="module", params=CURVE_NAMES)
+def env(request):
+    name = request.param
+    return bt.curve_ops(name), jax_curve_ops(name), CURVES[name]
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +92,7 @@ def proven_for(env):
 
     def get(m):
         if m not in cache:
-            rows = witnesses(m, 40 + m)
+            rows = witnesses(m, 40 + m, gc.fn.p)
             pk = bt.PublicKey.new(c, N * m, CPU)
             provers = port_provers(pk, rows)
             batch = bt.batch_prove(c, pk, N, provers, [bt.DeterministicTranscript(m)] * K,
@@ -88,11 +103,10 @@ def proven_for(env):
     return get
 
 
-def witnesses(m, seed):
-    """K lists of m (v, γ) pairs from a numpy seed."""
+def witnesses(m, seed, order):
+    """K lists of m (v, γ) pairs from a numpy seed, γ below the group order."""
     rng = np.random.default_rng(seed)
-    fl = CURVES["edwards25519"].fn.p
-    return [[(int(rng.integers(0, 1 << N)), int.from_bytes(rng.bytes(32), "little") % fl)
+    return [[(int(rng.integers(0, 1 << N)), int.from_bytes(rng.bytes(32), "little") % order)
              for _ in range(m)] for _ in range(K)]
 
 
@@ -124,40 +138,49 @@ def proven(request, proven_for):
     return proven_for(request.param)
 
 
-def test_k5_plain_matches_pallas_ladder(env):
+def test_k5_plain_matches_pallas_ladder():
     """nbits = 16 as tests/test_pallas.py does, two leading axes, a zero
-    scalar and the identity point among the lanes."""
-    c, jc, gc = env
+    scalar and the identity point among the lanes. The Weierstrass form
+    meets golden instead (test_k5_plain_matches_golden_full_width and
+    tests/test_torch_curve_kernels.py::test_plain_kernels_match_golden):
+    its interpret-mode Pallas kernels cost minutes each on a CPU."""
+    name = "edwards25519"
+    c, jc, gc = bt.curve_ops(name), jax_curve_ops(name), CURVES[name]
     rng = np.random.default_rng(5)
     ks = [int(x) for x in rng.integers(0, 1 << 16, size=6)]
     ks[2] = 0
     pts = [gc.mul(gc.base(), 3 + i) for i in range(6)]
     pts[4] = None
+    C = c.COORDS
     before = cc.ladder_scalar_mul.launches
     got = cc.ladder_scalar_mul(c, c.fn.encode_plain(ks).reshape(2, 3, 8),
-                               c.encode_points(pts).reshape(2, 3, 4, 8), 16)
+                               c.encode_points(pts).reshape(2, 3, C, 8), 16)
     want = jax_ladder(jc, jnp.asarray(jc.fn.encode_plain(ks)).reshape(2, 3, -1),
-                      jnp.asarray(jc.encode_points(pts)).reshape(2, 3, 4, -1), 16,
+                      jnp.asarray(jc.encode_points(pts)).reshape(2, 3, C, -1), 16,
                       interpret=True)
-    assert got.shape == (2, 3, 4, 8)
-    assert c.decode_points(got) == jc.decode_points(want.reshape(6, 4, -1))
+    assert got.shape == (2, 3, C, 8)
+    assert c.decode_points(got) == jc.decode_points(want.reshape(6, C, -1))
     assert cc.ladder_scalar_mul.launches == before
 
 
 def test_k5_plain_matches_golden_full_width(env):
-    """253-bit scalars (the bit commitment's width) on a few lanes."""
+    """Scalars of the group order's width (the bit commitment's: 253 bits on
+    edwards25519, 256 on secp256k1) on a few lanes."""
     c, _, gc = env
     rng = np.random.default_rng(6)
     ks = [int.from_bytes(rng.bytes(32), "little") % gc.fn.p for _ in range(3)]
     pts = [gc.mul(gc.base(), 7 + i) for i in range(3)]
-    got = cc.ladder_scalar_mul(c, c.fn.encode_plain(ks), c.encode_points(pts), 253)
+    ks[1] = 0
+    pts[2] = None
+    got = cc.ladder_scalar_mul(c, c.fn.encode_plain(ks), c.encode_points(pts),
+                               c.fn.order_bits)
     assert c.decode_points(got) == [gc.mul(p, k) for k, p in zip(ks, pts)]
 
 
 @pytest.mark.parametrize("m", [1, 2])
 def test_bit_commitment_matches_jax(env, m):
-    c, jc, _ = env
-    rows = witnesses(m, 10 + m)
+    c, jc, gc = env
+    rows = witnesses(m, 10 + m, gc.fn.p)
     bits = np.stack([bit_decompose([v for v, _ in row], N, m) for row in rows])
     for row, b in zip(rows, bits):
         assert (b == _bit_decompose([v for v, _ in row], N, m)).all()
@@ -249,10 +272,10 @@ def test_prove_matches_jax_and_golden(env, proven_for, monkeypatch):
     assert ps[0] is provers[0] and ts[0] is t and rs[0] is r
 
 
-def test_mixed_aggregation_proves_each_alone(env, monkeypatch):
+def test_mixed_aggregation_proves_each_alone(monkeypatch):
     """A batch mixing m proves each statement as its own K = 1 call and
     returns a list (batchprove.py:148-154)."""
-    c = env[0]
+    c = bt.curve_ops("edwards25519")
     pk = bt.PublicKey.new(c, 16, CPU)
     provers = port_provers(pk, [[(1, 2)], [(3, 4), (5, 6)]])
     seen = []
@@ -263,8 +286,8 @@ def test_mixed_aggregation_proves_each_alone(env, monkeypatch):
     assert seen == [(1, "t0", "r0"), (2, "t1", "r1")]
 
 
-def test_batch_prove_argument_errors(env):
-    c = env[0]
+def test_batch_prove_argument_errors():
+    c = bt.curve_ops("edwards25519")
     pk = bt.PublicKey.new(c, 16, CPU)
     provers = port_provers(pk, [[(1, 2), (3, 4)]])
     assert bt.batch_prove(c, pk, N, []) == []
@@ -298,10 +321,10 @@ def test_rngs_match_jax():
 def test_commit_and_range_prover_from_jax(env):
     """RangeProver.commit against JAX pk.commitment, and the JAX witness
     container carried over by convert.range_prover_from_jax."""
-    c, jc, _ = env
+    c, jc, gc = env
     pk = bt.PublicKey.new(c, 16, CPU)
     jpk = JaxPublicKey.new(jc, 16)
-    pairs = [(0, 1), (5, 0), ((1 << 64) - 1, CURVES["edwards25519"].fn.p - 1)]
+    pairs = [(0, 1), (5, 0), ((1 << 64) - 1, gc.fn.p - 1)]
     mine, ref = bt.RangeProver(), JaxRangeProver()
     for v, g in pairs:
         mine.commit(pk, v, g)
@@ -319,7 +342,7 @@ def test_entry_points_run_on_the_card_unless_asked():
     a machine without one they raise instead of falling back to the CPU."""
     c = bt.curve_ops()
     with open(FIXTURE, "rb") as f:
-        wire = serialize.read_fixture(f.read())[2][0][1]
+        wire = serialize.read_fixture(f.read())[3][0][1]
     jarr = np.zeros((1, 4, 22), np.int32)
     calls = [lambda: bt.PublicKey.new(c, 8).g, lambda: serialize.proof_from_bytes(c, wire).A,
              lambda: convert.points_from_jax(jarr, c)]
