@@ -1,8 +1,10 @@
 """Carry values of the JAX package over to the port, through canonical ints.
 
-The JAX package holds a field element as W-bit limbs (12-bit int32 on the
-TPU, 24-bit int64 on the CPU backend) in Montgomery form with R = 2^(W·L);
-the port holds 8 × 32-bit limbs with R = 2^256. Nothing here imports jax:
+The JAX package holds a field element as L W-bit limbs (12-bit int32 on the
+TPU, 24-bit int64 on the CPU backend) in Montgomery form with R = 2^(W·L),
+e.g. 32 × 12 bits (R = 2^384) for bls12-381's Fq; the port holds the field
+spec's L' 32-bit words (8, or 12 for bls12-381's Fq) with R = 2^(32·L').
+Nothing here imports jax:
 arrays come in as anything numpy can read (jax arrays included), each
 element is decoded to its canonical integer and re-encoded in the port's
 layout. W defaults to the JAX package's rule: 12 bits for int32 limbs, 24
@@ -40,7 +42,7 @@ def _limb_ints(arr: np.ndarray, limb_bits: int) -> List[int]:
 
 def field_from_jax(arr, fops, montgomery: bool = True, limb_bits: int | None = None,
                    device=None) -> torch.Tensor:
-    """JAX field array (..., L) → port tensor (..., 8) in the same form
+    """JAX field array (..., L) → port tensor (..., fops.L) in the same form
     (Montgomery or plain) over the port's FieldOps `fops`."""
     device = entry_device(device)
     arr = np.asarray(arr)
@@ -55,7 +57,7 @@ def field_from_jax(arr, fops, montgomery: bool = True, limb_bits: int | None = N
 
 
 def points_from_jax(arr, curve, limb_bits: int | None = None, device=None) -> torch.Tensor:
-    """JAX points (..., C, L) → port points (..., C, 8), C = curve.COORDS."""
+    """JAX points (..., C, L) → port points (..., C, curve.fp.L), C = curve.COORDS."""
     if np.shape(arr)[-2] != curve.COORDS:
         raise ValueError(f"{curve.name} points have {curve.COORDS} coordinates")
     return field_from_jax(arr, curve.fp, True, limb_bits, device)

@@ -13,7 +13,8 @@
 namespace bpp {
 
 struct Pt4 {
-  static constexpr int NC = 4;
+  static constexpr int NC = 4, NL = 8;
+  using Consts = CurveConsts<NL>;
   uint32_t X[NL], Y[NL], Z[NL], T[NL];
   __device__ __forceinline__ uint32_t* coord(int c) {
     return c == 0 ? X : c == 1 ? Y : c == 2 ? Z : T;
@@ -23,7 +24,9 @@ struct Pt4 {
   }
 };
 
-__device__ __forceinline__ void pt_identity(Pt4& P, const CurveConsts& C) {
+constexpr int NL4 = Pt4::NL;
+
+__device__ __forceinline__ void pt_identity(Pt4& P, const Pt4::Consts& C) {
   fe_set_zero(P.X);
   fe_copy(P.Y, C.one);
   fe_copy(P.Z, C.one);
@@ -31,9 +34,9 @@ __device__ __forceinline__ void pt_identity(Pt4& P, const CurveConsts& C) {
 }
 
 // R = P + Q, add-2008-hwcd-3 (a = -1), complete.  R may alias P or Q.
-__device__ __forceinline__ void pt_add(Pt4& R, const Pt4& P, const Pt4& Q, const CurveConsts& K) {
-  const Mod& M = K.fp;
-  uint32_t a[NL], b[NL], c[NL], d[NL], t0[NL], t1[NL];
+__device__ __forceinline__ void pt_add(Pt4& R, const Pt4& P, const Pt4& Q, const Pt4::Consts& K) {
+  const Mod<NL4>& M = K.fp;
+  uint32_t a[NL4], b[NL4], c[NL4], d[NL4], t0[NL4], t1[NL4];
   fe_sub(t0, P.Y, P.X, M);
   fe_sub(t1, Q.Y, Q.X, M);
   fe_mul(a, t0, t1, M);
@@ -44,7 +47,7 @@ __device__ __forceinline__ void pt_add(Pt4& R, const Pt4& P, const Pt4& Q, const
   fe_mul(c, t0, K.k, M);
   fe_add(t0, P.Z, P.Z, M);
   fe_mul(d, t0, Q.Z, M);
-  uint32_t e[NL], f[NL], g[NL], h[NL];
+  uint32_t e[NL4], f[NL4], g[NL4], h[NL4];
   fe_sub(e, b, a, M);
   fe_sub(f, d, c, M);
   fe_add(g, d, c, M);
@@ -56,15 +59,15 @@ __device__ __forceinline__ void pt_add(Pt4& R, const Pt4& P, const Pt4& Q, const
 }
 
 // R = 2P, dbl-2008-hwcd (a = -1).  R may alias P.
-__device__ __forceinline__ void pt_dbl(Pt4& R, const Pt4& P, const CurveConsts& K) {
-  const Mod& M = K.fp;
-  uint32_t a[NL], b[NL], zz[NL], t[NL];
+__device__ __forceinline__ void pt_dbl(Pt4& R, const Pt4& P, const Pt4::Consts& K) {
+  const Mod<NL4>& M = K.fp;
+  uint32_t a[NL4], b[NL4], zz[NL4], t[NL4];
   fe_mul(a, P.X, P.X, M);
   fe_mul(b, P.Y, P.Y, M);
   fe_mul(zz, P.Z, P.Z, M);
   fe_add(t, P.X, P.Y, M);
   fe_mul(t, t, t, M);
-  uint32_t c[NL], e[NL], f[NL], g[NL], h[NL];
+  uint32_t c[NL4], e[NL4], f[NL4], g[NL4], h[NL4];
   fe_add(c, zz, zz, M);
   fe_sub(g, b, a, M);
   fe_sub(e, t, a, M);
@@ -79,7 +82,7 @@ __device__ __forceinline__ void pt_dbl(Pt4& R, const Pt4& P, const CurveConsts& 
 }
 
 // P = -P: (-X, Y, Z, -T).
-__device__ __forceinline__ void pt_neg(Pt4& P, const CurveConsts& K) {
+__device__ __forceinline__ void pt_neg(Pt4& P, const Pt4::Consts& K) {
   fe_neg(P.X, P.X, K.fp);
   fe_neg(P.T, P.T, K.fp);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces bulletproofsplus_tpu/curves/pallas_curve.py::_fixed_lookup_call
 // (the pl.pallas_call at :371), both of its bodies: Edwards (Pt4) and
-// Weierstrass (Pt3) points, one template built once per family
+// Weierstrass (Pt3<8>, Pt3<12>) points, one template built once per family
 // (family.cuh); a negative digit negates the
 // selected entry the family's way (-X and -T for Edwards, -Y for
 // Weierstrass, :324-328). Lanes are (window, point) pairs; lane i selects
@@ -12,9 +12,10 @@
 // one accumulator across its sequential grid; Hopper blocks run in no order,
 // so each block sums a contiguous range of lanes into one partial point
 // (strided over its threads, then a shared-memory tree) and K3 reduces the
-// partials in a second pass. Bound by the table reads: one point (128 or
-// 96 bytes) per lane from a table too large for L2 (268 MB for edwards25519
-// at 2mn = 2048, 805 MB for secp256k1 at 2mn = 8192), one point add per lane.
+// partials in a second pass. Bound by the table reads: one point (128, 96
+// or 144 bytes) per lane from a table too large for L2 (268 MB for
+// edwards25519 at 2mn = 2048, 805 MB for secp256k1 at 2mn = 8192, 4.83 GB
+// for bls12-381 at 2mn = 32768), and by one point add per lane.
 #include <cuda_runtime.h>
 
 #include "family.cuh"
@@ -28,8 +29,8 @@ constexpr int THREADS = 256;
 template <class P>
 __global__ void fixed_lookup_kernel(const uint32_t* __restrict__ tbl,
                                     const int32_t* __restrict__ dig, uint32_t* __restrict__ out,
-                                    long long lanes, int is_signed, CurveConsts K) {
-  constexpr int WORDS = P::NC * NL;
+                                    long long lanes, int is_signed, typename P::Consts K) {
+  constexpr int WORDS = P::NC * P::NL;
   __shared__ P sh[THREADS];
   const long long per = (lanes + gridDim.x - 1) / gridDim.x;
   const long long lo = (long long)blockIdx.x * per;
@@ -54,7 +55,7 @@ __global__ void fixed_lookup_kernel(const uint32_t* __restrict__ tbl,
 
 template <class P>
 int launch(const void* tbl, const void* dig, void* out, long long lanes, int is_signed,
-           int nblocks, const CurveConsts& K, cudaStream_t stream) {
+           int nblocks, const typename P::Consts& K, cudaStream_t stream) {
   fixed_lookup_kernel<P><<<nblocks, THREADS, 0, stream>>>(
       (const uint32_t*)tbl, (const int32_t*)dig, (uint32_t*)out, lanes, is_signed, K);
   return (int)cudaGetLastError();
@@ -65,7 +66,7 @@ int launch(const void* tbl, const void* dig, void* out, long long lanes, int is_
 extern "C" int BPP_ENTRY(bpp_fixed_lookup)(const void* tbl, const void* dig, void* out,
                                            long long lanes, int is_signed, int nblocks,
                                            const uint32_t* consts, void* stream) {
-  CurveConsts K;
+  FamilyPt::Consts K;
   memcpy(&K, consts, sizeof(K));
   return launch<FamilyPt>(tbl, dig, out, lanes, is_signed, nblocks, K, (cudaStream_t)stream);
 }

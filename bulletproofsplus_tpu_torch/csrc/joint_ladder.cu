@@ -2,18 +2,20 @@
 //
 // Replaces bulletproofsplus_tpu/curves/pallas_curve.py::_joint_ladder_call
 // (the pl.pallas_call at :718), both of its bodies: Edwards (Pt4) and
-// Weierstrass (Pt3) points, one template built once per family
+// Weierstrass (Pt3<8>, Pt3<12>) points, one template built once per family
 // (family.cuh). One thread per group of J pairs: it builds J tables
-// 0..15·P_j in local memory (J × 2 KB for Edwards, J × 1.5 KB for
-// Weierstrass: 12 KB at J = 8), then runs nwin 4-bit windows MSB first, each
-// 4 doublings and J table adds. 4-bit digits come straight
-// from the plain-form scalar words. What bounds it on Hopper: 8-9 (Edwards)
-// or 9-14 (Weierstrass) Montgomery products per point op, ~900-1,000 point
-// ops per group at J = 8, all dependent. At the verifier's few thousand
-// groups it is bound by per-thread latency and by the local-memory table
-// loads; at the prover's 10^5-10^6 groups the card's threads are full and it
-// comes within a few times of its integer-multiply bound. A later PR spreads
-// a group over several threads; this one is the simple, exact baseline.
+// 0..15·P_j in local memory (J × 2 KB for Edwards, J × 1.5 KB for 8-word
+// Weierstrass points, J × 2.25 KB for 12-word ones: 18 KB at J = 8), then
+// runs nwin 4-bit windows MSB first, each 4 doublings and J table adds.
+// 4-bit digits come straight from the plain-form scalar words, SW = 8 of
+// them a scalar whatever the width of a coordinate. What bounds it on
+// Hopper: 8-9 (Edwards) or 9-14 (Weierstrass) Montgomery products per point
+// op, ~900-1,000 point ops per group at J = 8, all dependent. At the
+// verifier's few thousand groups it is bound by per-thread latency and by
+// the local-memory table loads; at the prover's 10^5-10^6 groups the card's
+// threads are full and it comes within a few times of its integer-multiply
+// bound. A later PR spreads a group over several threads; this one is the
+// simple, exact baseline.
 #include <cuda_runtime.h>
 
 #include "family.cuh"
@@ -26,8 +28,8 @@ template <class P, int J>
 __global__ void joint_ladder_kernel(const uint32_t* __restrict__ pts,
                                     const uint32_t* __restrict__ scal,
                                     uint32_t* __restrict__ out, long long G, int nwin,
-                                    CurveConsts K) {
-  constexpr int W = P::NC * NL;
+                                    typename P::Consts K) {
+  constexpr int W = P::NC * P::NL;
   long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
   P tbl[J][16];
@@ -38,7 +40,7 @@ __global__ void joint_ladder_kernel(const uint32_t* __restrict__ pts,
 #pragma unroll 1
     for (int k = 2; k < 16; ++k) pt_add(tbl[j][k], tbl[j][k - 1], tbl[j][1], K);
   }
-  const uint32_t* s = scal + g * J * NL;
+  const uint32_t* s = scal + g * J * SW;
   P acc;
   pt_identity(acc, K);
 #pragma unroll 1
@@ -48,7 +50,7 @@ __global__ void joint_ladder_kernel(const uint32_t* __restrict__ pts,
     const int word = (4 * w) >> 5, shift = (4 * w) & 31;
 #pragma unroll 1
     for (int j = 0; j < J; ++j) {
-      const uint32_t dig = (s[j * NL + word] >> shift) & 15u;
+      const uint32_t dig = (s[j * SW + word] >> shift) & 15u;
       pt_add(acc, acc, tbl[j][dig], K);
     }
   }
@@ -57,7 +59,7 @@ __global__ void joint_ladder_kernel(const uint32_t* __restrict__ pts,
 
 template <class P>
 int launch(const void* pts, const void* scal, void* out, long long G, int jway, int nwin,
-           const CurveConsts& K, cudaStream_t stream) {
+           const typename P::Consts& K, cudaStream_t stream) {
   const int threads = 32;
   const unsigned blocks = (unsigned)((G + threads - 1) / threads);
   const uint32_t* p = (const uint32_t*)pts;
@@ -78,7 +80,7 @@ int launch(const void* pts, const void* scal, void* out, long long G, int jway, 
 extern "C" int BPP_ENTRY(bpp_joint_ladder)(const void* pts, const void* scal, void* out,
                                            long long G, int jway, int nwin,
                                            const uint32_t* consts, void* stream) {
-  CurveConsts K;
+  FamilyPt::Consts K;
   memcpy(&K, consts, sizeof(K));
   return launch<FamilyPt>(pts, scal, out, G, jway, nwin, K, (cudaStream_t)stream);
 }

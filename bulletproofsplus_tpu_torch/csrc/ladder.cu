@@ -2,15 +2,17 @@
 //
 // Replaces bulletproofsplus_tpu/curves/pallas_curve.py::_ladder_call (the
 // pl.pallas_call at :253; wrapper ladder_scalar_mul :436), both of its
-// bodies: Edwards (Pt4) and Weierstrass (Pt3) points, one template built
-// once per family (family.cuh). A 16-entry table 0·P .. 15·P built by
+// bodies: Edwards (Pt4) and Weierstrass (Pt3<8>, Pt3<12>) points, one
+// template built once per family (family.cuh). A 16-entry table 0·P .. 15·P built by
 // repeated adds, then nwin windows MSB first, each four doublings and one
 // table add, with canonical output. The TPU pads lanes to 512-wide blocks;
 // here one thread owns one lane and nothing pads.
 //
 // The table lives in dynamic shared memory, 16 points a thread: 64 KB for a
-// 32-thread block of Edwards points (128 B), 48 KB of Weierstrass points
-// (96 B), word-interleaved across the block's threads (word w of entry k of
+// 32-thread block of Edwards points (128 B), 48 KB of 8-word Weierstrass
+// points (96 B), 72 KB of 12-word ones (144 B, bls12-381), all above the
+// 48 KB of static shared memory and opted in per family at launch;
+// word-interleaved across the block's threads (word w of entry k of
 // thread t at [(k·WORDS + w)·32 + t]) so that a warp's 32 table reads hit 32
 // different banks. That keeps it out of the local memory K2 pays for. What
 // bounds it: on the prover's path it runs h·α_k of the bit commitment on
@@ -31,36 +33,36 @@ constexpr int NENT = 16;
 
 template <class P>
 constexpr int smem_bytes() {
-  return NENT * P::NC * NL * THREADS * (int)sizeof(uint32_t);
+  return NENT * P::NC * P::NL * THREADS * (int)sizeof(uint32_t);
 }
 
 template <class P>
 __device__ __forceinline__ void tbl_store(uint32_t* tbl, int k, const P& Q) {
-  uint32_t* base = tbl + k * P::NC * NL * THREADS + threadIdx.x;
+  uint32_t* base = tbl + k * P::NC * P::NL * THREADS + threadIdx.x;
 #pragma unroll
   for (int c = 0; c < P::NC; ++c) {
     const uint32_t* w = Q.coord(c);
 #pragma unroll
-    for (int i = 0; i < NL; ++i) base[(c * NL + i) * THREADS] = w[i];
+    for (int i = 0; i < P::NL; ++i) base[(c * P::NL + i) * THREADS] = w[i];
   }
 }
 
 template <class P>
 __device__ __forceinline__ void tbl_load(P& Q, const uint32_t* tbl, uint32_t k) {
-  const uint32_t* base = tbl + k * P::NC * NL * THREADS + threadIdx.x;
+  const uint32_t* base = tbl + k * P::NC * P::NL * THREADS + threadIdx.x;
 #pragma unroll
   for (int c = 0; c < P::NC; ++c) {
     uint32_t* w = Q.coord(c);
 #pragma unroll
-    for (int i = 0; i < NL; ++i) w[i] = base[(c * NL + i) * THREADS];
+    for (int i = 0; i < P::NL; ++i) w[i] = base[(c * P::NL + i) * THREADS];
   }
 }
 
 template <class P>
 __global__ void __launch_bounds__(THREADS)
 ladder_kernel(const uint32_t* __restrict__ pts, const uint32_t* __restrict__ scal,
-              uint32_t* __restrict__ out, long long N, int nwin, CurveConsts K) {
-  constexpr int WORDS = P::NC * NL;
+              uint32_t* __restrict__ out, long long N, int nwin, typename P::Consts K) {
+  constexpr int WORDS = P::NC * P::NL;
   extern __shared__ uint32_t tbl[];
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= N) return;  // each thread reads only its own table column: no barrier
@@ -75,7 +77,7 @@ ladder_kernel(const uint32_t* __restrict__ pts, const uint32_t* __restrict__ sca
     pt_add(cur, cur, base, K);
     tbl_store(tbl, k, cur);
   }
-  const uint32_t* s = scal + i * NL;
+  const uint32_t* s = scal + i * SW;
 #pragma unroll 1
   for (int w = nwin - 1; w >= 0; --w) {
 #pragma unroll 1
@@ -89,7 +91,7 @@ ladder_kernel(const uint32_t* __restrict__ pts, const uint32_t* __restrict__ sca
 
 template <class P>
 int launch(const void* pts, const void* scal, void* out, long long N, int nwin,
-           const CurveConsts& K, cudaStream_t stream) {
+           const typename P::Consts& K, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       ladder_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<P>());
   if (err != cudaSuccess) return (int)err;
@@ -104,7 +106,7 @@ int launch(const void* pts, const void* scal, void* out, long long N, int nwin,
 extern "C" int BPP_ENTRY(bpp_ladder)(const void* pts, const void* scal, void* out, long long N,
                                      int nwin, const uint32_t* consts, void* stream) {
   if (nwin < 1 || nwin > 64) return (int)cudaErrorInvalidValue;
-  CurveConsts K;
+  FamilyPt::Consts K;
   memcpy(&K, consts, sizeof(K));
   return launch<FamilyPt>(pts, scal, out, N, nwin, K, (cudaStream_t)stream);
 }

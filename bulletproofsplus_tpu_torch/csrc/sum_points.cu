@@ -2,13 +2,14 @@
 //
 // Replaces bulletproofsplus_tpu/curves/pallas_curve.py::_sum_points_call
 // (the pl.pallas_call at :553), both of its bodies: Edwards (Pt4) and
-// Weierstrass (Pt3) points, one template built once per family
+// Weierstrass (Pt3<8>, Pt3<12>) points, one template built once per family
 // (family.cuh). The TPU kernel revisits one output window across a
 // sequential grid and finishes with log2(512) rotate-adds. Hopper blocks run
 // in no order, so here one block owns one group: each
 // thread adds a strided slice of the group, then the block reduces its 256
 // partial points through shared memory (256 × 128 B = 32 KB for Edwards,
-// 24 KB for Weierstrass). Bound by the point-add latency of the 8-level tree
+// 24 KB for 8-word Weierstrass points, 36 KB for 12-word ones). Bound by
+// the point-add latency of the 8-level tree
 // and, for short groups, by having one block per group.
 #include <cuda_runtime.h>
 
@@ -22,8 +23,8 @@ constexpr int THREADS = 256;
 
 template <class P>
 __global__ void sum_points_kernel(const uint32_t* __restrict__ pts, uint32_t* __restrict__ out,
-                                  long long W, CurveConsts K) {
-  constexpr int WORDS = P::NC * NL;
+                                  long long W, typename P::Consts K) {
+  constexpr int WORDS = P::NC * P::NL;
   __shared__ P sh[THREADS];
   const long long g = blockIdx.x;
   P acc, cur;
@@ -37,8 +38,8 @@ __global__ void sum_points_kernel(const uint32_t* __restrict__ pts, uint32_t* __
 }
 
 template <class P>
-int launch(const void* pts, void* out, long long G, long long W, const CurveConsts& K,
-           cudaStream_t stream) {
+int launch(const void* pts, void* out, long long G, long long W,
+           const typename P::Consts& K, cudaStream_t stream) {
   sum_points_kernel<P><<<(unsigned)G, THREADS, 0, stream>>>((const uint32_t*)pts,
                                                            (uint32_t*)out, W, K);
   return (int)cudaGetLastError();
@@ -48,7 +49,7 @@ int launch(const void* pts, void* out, long long G, long long W, const CurveCons
 
 extern "C" int BPP_ENTRY(bpp_sum_points)(const void* pts, void* out, long long G, long long W,
                                          const uint32_t* consts, void* stream) {
-  CurveConsts K;
+  FamilyPt::Consts K;
   memcpy(&K, consts, sizeof(K));
   return launch<FamilyPt>(pts, out, G, W, K, (cudaStream_t)stream);
 }

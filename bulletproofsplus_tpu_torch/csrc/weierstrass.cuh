@@ -1,5 +1,6 @@
-// Projective Weierstrass points (X, Y, Z) with a = 0 over field.cuh:
-// family 1 (secp256k1).
+// Projective Weierstrass points (X, Y, Z) with a = 0 over field.cuh, at N
+// words a coordinate: family 1 (N = 8, secp256k1) and family 2 (N = 12,
+// bls12-381 G1).
 //
 // The device counterpart of curves/weierstrass.py::WeierstrassOps and of the
 // TPU formulas `_wadd`/`_wdbl` in bulletproofsplus_tpu/curves/
@@ -8,27 +9,30 @@
 // and plain version produce identical coordinates when they add in the same
 // order. They are complete on odd-order groups: no case for the identity,
 // doublings or inverses. The identity is (0, 1, 0); a point with Z = 0 is the
-// identity. A point in memory is 24 consecutive uint32 (96 bytes, six 16-byte
-// words): X, Y, Z, Montgomery form, every coordinate < p. CurveConsts::k
-// holds 3b. The formulas keep more values alive than hwcd does (an add holds
-// eight temporaries besides its operands); the build log's ptxas lines show
-// each kernel's registers and spills.
+// identity. A point in memory is 3·N consecutive uint32 (96 bytes at N = 8,
+// 144 at N = 12): X, Y, Z, Montgomery form, every coordinate < p.
+// CurveConsts::k holds 3b. The formulas keep more values alive than hwcd
+// does (an add holds eight temporaries besides its operands, 8·N registers);
+// the build log's ptxas lines show each kernel's registers and spills.
 #pragma once
 
 #include "points.cuh"
 
 namespace bpp {
 
+template <int N>
 struct Pt3 {
-  static constexpr int NC = 3;
-  uint32_t X[NL], Y[NL], Z[NL];
+  static constexpr int NC = 3, NL = N;
+  using Consts = CurveConsts<N>;
+  uint32_t X[N], Y[N], Z[N];
   __device__ __forceinline__ uint32_t* coord(int c) { return c == 0 ? X : c == 1 ? Y : Z; }
   __device__ __forceinline__ const uint32_t* coord(int c) const {
     return c == 0 ? X : c == 1 ? Y : Z;
   }
 };
 
-__device__ __forceinline__ void pt_identity(Pt3& P, const CurveConsts& C) {
+template <int N>
+__device__ __forceinline__ void pt_identity(Pt3<N>& P, const CurveConsts<N>& C) {
   fe_set_zero(P.X);
   fe_copy(P.Y, C.one);
   fe_set_zero(P.Z);
@@ -36,9 +40,11 @@ __device__ __forceinline__ void pt_identity(Pt3& P, const CurveConsts& C) {
 
 // R = P + Q, RCB algorithm 7 (a = 0), complete: 14 products.  R may alias
 // P or Q (both are read before R is written).
-__device__ __forceinline__ void pt_add(Pt3& R, const Pt3& P, const Pt3& Q, const CurveConsts& K) {
-  const Mod& M = K.fp;
-  uint32_t t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], t5[NL], u[NL], v[NL];
+template <int N>
+__device__ __forceinline__ void pt_add(Pt3<N>& R, const Pt3<N>& P, const Pt3<N>& Q,
+                                       const CurveConsts<N>& K) {
+  const Mod<N>& M = K.fp;
+  uint32_t t0[N], t1[N], t2[N], t3[N], t4[N], t5[N], u[N], v[N];
   fe_mul(t0, P.X, Q.X, M);
   fe_mul(t1, P.Y, Q.Y, M);
   fe_mul(t2, P.Z, Q.Z, M);
@@ -75,9 +81,10 @@ __device__ __forceinline__ void pt_add(Pt3& R, const Pt3& P, const Pt3& Q, const
 }
 
 // R = 2P, RCB algorithm 9 (a = 0), complete: 9 products.  R may alias P.
-__device__ __forceinline__ void pt_dbl(Pt3& R, const Pt3& P, const CurveConsts& K) {
-  const Mod& M = K.fp;
-  uint32_t t0[NL], t1[NL], t2[NL], xy[NL], z3[NL], y3[NL];
+template <int N>
+__device__ __forceinline__ void pt_dbl(Pt3<N>& R, const Pt3<N>& P, const CurveConsts<N>& K) {
+  const Mod<N>& M = K.fp;
+  uint32_t t0[N], t1[N], t2[N], xy[N], z3[N], y3[N];
   fe_mul(t0, P.Y, P.Y, M);
   fe_mul(t1, P.Y, P.Z, M);
   fe_mul(t2, P.Z, P.Z, M);
@@ -99,6 +106,9 @@ __device__ __forceinline__ void pt_dbl(Pt3& R, const Pt3& P, const CurveConsts& 
 }
 
 // P = -P: (X, -Y, Z).
-__device__ __forceinline__ void pt_neg(Pt3& P, const CurveConsts& K) { fe_neg(P.Y, P.Y, K.fp); }
+template <int N>
+__device__ __forceinline__ void pt_neg(Pt3<N>& P, const CurveConsts<N>& K) {
+  fe_neg(P.Y, P.Y, K.fp);
+}
 
 }  // namespace bpp

@@ -1,11 +1,13 @@
-"""What the two point families share: host conversions, the identity, select.
+"""What the point families share: host conversions, the identity, select.
 
-A curve's points are (..., COORDS, 8) limb tensors in Montgomery form, every
-coordinate < p: COORDS = 4 for extended Edwards (curves/edwards.py) and 3
-for projective Weierstrass (curves/weierstrass.py). FAMILY names the
-family's build of each point kernel (entry point bpp_<kernel>_<FAMILY>,
-csrc/family.cuh), and `kconst_int` is the one curve constant their formulas
-multiply by (2d or 3b), packed with the modulus by curves/cuda_curve.py.
+A curve's points are (..., COORDS, L) limb tensors in Montgomery form, every
+coordinate < p, with L = fp.L the base field's word count (8, or 12 on
+bls12-381): COORDS = 4 for extended Edwards (curves/edwards.py) and 3 for
+projective Weierstrass (curves/weierstrass.py). FAMILY names the build of
+each point kernel for that point type and width (entry point
+bpp_<kernel>_<FAMILY>, csrc/family.cuh), and `kconst_int` is the one curve
+constant their formulas multiply by (2d or 3b), packed with the modulus by
+curves/cuda_curve.py.
 """
 from __future__ import annotations
 
@@ -50,18 +52,18 @@ class CurveOps:
         if key not in self._dev:
             ident = [v * self.fp.spec.r_mod_p % self.fp.p for v in self.host.identity]
             self._dev[key] = {"kconst": self.fp.encode(self.kconst_int, device),
-                              "identity": ints_to_tensor(ident, device)}
+                              "identity": ints_to_tensor(ident, device, self.fp.L)}
         return self._dev[key]
 
     # -- host conversions -------------------------------------------------
 
     def encode_points(self, points: Sequence[Affine], device=None) -> torch.Tensor:
-        """Affine tuples (None = identity) → (N, COORDS, 8) with Z = 1."""
+        """Affine tuples (None = identity) → (N, COORDS, L) with Z = 1."""
         vals = [v for A in points for v in self.host.lift(A)]
         return self.fp.encode(vals, device).reshape(-1, self.COORDS, self.fp.L)
 
     def decode_points(self, t: torch.Tensor) -> List[Affine]:
-        """(..., COORDS, 8) → flat list of affine tuples, one host inversion."""
+        """(..., COORDS, L) → flat list of affine tuples, one host inversion."""
         rinv, p, nc = self.fp.spec.rinv, self.fp.p, self.COORDS
         v = [x * rinv % p for x in tensor_to_ints(t)]
         return self.host.to_affine([tuple(v[i:i + nc]) for i in range(0, len(v), nc)])

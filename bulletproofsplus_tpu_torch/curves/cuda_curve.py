@@ -7,19 +7,22 @@ The plain versions run on the curve's plain field ops, so they never launch
 K1. Every kernel has two forms, as every TPU kernel has two bodies
 (`_family`, pallas_curve.py:123-134): extended Edwards points (C = 4
 coordinates, csrc/ed25519.cuh) and projective Weierstrass points (C = 3,
-csrc/weierstrass.cuh), one template built once per family; the wrapper
-launches the entry point of `curve.FAMILY` (bpp_<kernel>_edwards or
-bpp_<kernel>_weierstrass). Points are (..., C, 8) with C = curve.COORDS.
+csrc/weierstrass.cuh), one template built once per point type and width;
+the wrapper launches the entry point of `curve.FAMILY` (bpp_<kernel>_edwards,
+bpp_<kernel>_weierstrass at 8 words, bpp_<kernel>_weierstrass12 at 12 for
+bls12-381). Points are (..., C, L) with C = curve.COORDS and L = curve.fp.L;
+scalars are plain-form (..., S) with S = curve.fn.L = 8 words on every curve,
+so the kernels read coordinates and scalars at two widths.
 
 - K2 `joint_ladder_msm_grouped` ← `_joint_ladder_call` (pallas_curve.py:606,
   pallas_call :718). Bound on Hopper by per-thread latency: one thread runs
-  a whole group's ~900 dependent point ops (~1,000 at secp256k1's 256-bit
-  scalars); see csrc/joint_ladder.cu.
+  a whole group's ~900 dependent point ops (~1,000 at 256-bit scalars);
+  see csrc/joint_ladder.cu.
 - K3 `sum_points_grouped` ← `_sum_points_call` (:475, pallas_call :553).
   One block per group, a strided pass and a shared-memory tree in place of
   the TPU's sequential revisiting of one output window.
 - K4 `fixed_lookup_partials` ← `_fixed_lookup_call` (:269, pallas_call
-  :371). Bound by streaming the table (128 or 96 B a lane); blocks write one
+  :371). Bound by streaming the table (128, 96 or 144 B a lane); blocks write one
   partial each, which K3 reduces, because Hopper blocks cannot carry an
   accumulator across the grid the way the TPU's sequential grid does.
 - K5 `ladder_scalar_mul` ← `_ladder_call` (:146, pallas_call :253). One
@@ -28,7 +31,7 @@ bpp_<kernel>_weierstrass). Points are (..., C, 8) with C = curve.COORDS.
   ops; see csrc/ladder.cu. It computes K2 at J = 1 in the same order, but
   keeps its own entry point and launch count.
 
-Tables are entry-major (nent, lanes, C, 8) for both versions, where a lane
+Tables are entry-major (nent, lanes, C, L) for both versions, where a lane
 is a (window, point) pair, lane = window·N + point.
 """
 from __future__ import annotations
@@ -44,12 +47,14 @@ JWAYS = (1, 2, 4, 8)
 
 
 def _consts_words(curve):
-    """CurveConsts of csrc/points.cuh: p, -p⁻¹ mod 2³², the formulas'
-    constant (2d for Edwards, 3b for Weierstrass) and 1, both Montgomery."""
+    """CurveConsts of csrc/points.cuh at the base field's width L: p, -p⁻¹
+    mod 2³², the formulas' constant (2d for Edwards, 3b for Weierstrass) and
+    1 = 2^(32L) mod p, both Montgomery."""
     spec = curve.fp.spec
+    L = spec.num_limbs
     words = (spec.p_words + [spec.n0inv]
-             + int_to_words(curve.kconst_int * spec.r_mod_p % spec.modulus)
-             + int_to_words(spec.r_mod_p))
+             + int_to_words(curve.kconst_int * spec.r_mod_p % spec.modulus, L)
+             + int_to_words(spec.r_mod_p, L))
     return (ctypes.c_uint32 * len(words))(*words)
 
 
@@ -66,7 +71,7 @@ def _cuda_ready(name, *pairs):
 
 
 def joint_ladder_plain(curve, scalars, points, nbits: int):
-    """Plain K2. scalars (G, J, 8) plain form, points (G, J, C, 8) → (G, C, 8):
+    """Plain K2. scalars (G, J, S) plain form, points (G, J, C, L) → (G, C, L):
     Σ_j s_j·P_j per group, by the kernel's exact operation order (tables
     k·P_j built by repeated adds, then MSB-first windows of 4 doublings and
     J table adds)."""
@@ -76,7 +81,7 @@ def joint_ladder_plain(curve, scalars, points, nbits: int):
     tab = [c.identity_like((G, J), points.device), points]
     for _ in range(2, 1 << WINDOW):
         tab.append(c.add(tab[-1], points))
-    table = torch.stack(tab, dim=2)                        # (G, J, 16, C, 8)
+    table = torch.stack(tab, dim=2)                        # (G, J, 16, C, L)
     digits = c.fn.scalar_digits(scalars, nwin * WINDOW, WINDOW).long()
     rows = torch.arange(G, device=points.device)
     acc = c.identity_like((G,), points.device)
@@ -89,8 +94,8 @@ def joint_ladder_plain(curve, scalars, points, nbits: int):
 
 
 def joint_ladder_msm_grouped(curve, scalars, points, nbits: int, jway: int):
-    """K2 wrapper. scalars plain (..., N, 8), points (..., N, C, 8) with N a
-    multiple of jway → (..., N/jway, C, 8): consecutive groups of jway pairs
+    """K2 wrapper. scalars plain (..., N, S), points (..., N, C, L) with N a
+    multiple of jway → (..., N/jway, C, L): consecutive groups of jway pairs
     each give Σ_j s_j·P_j."""
     if jway not in JWAYS:
         raise ValueError(f"jway must be one of {JWAYS}")
@@ -98,9 +103,9 @@ def joint_ladder_msm_grouped(curve, scalars, points, nbits: int, jway: int):
     N = points.shape[-3]
     if N % jway:
         raise ValueError("pair count must be a multiple of jway")
-    C = curve.COORDS
-    pts = points.reshape(-1, jway, C, 8)
-    scal = scalars.expand(*lead, N, 8).reshape(-1, jway, 8)
+    C, L, S = curve.COORDS, curve.fp.L, curve.fn.L
+    pts = points.reshape(-1, jway, C, L)
+    scal = scalars.expand(*lead, N, S).reshape(-1, jway, S)
     G = pts.shape[0]
     if points.device.type == "cpu":
         out = joint_ladder_plain(curve, scal, pts, nbits)
@@ -108,13 +113,13 @@ def joint_ladder_msm_grouped(curve, scalars, points, nbits: int, jway: int):
         kernels = _cuda_ready("joint_ladder", (pts, torch.int32),
                               (scal, torch.int32))
         pts, scal = kernels.aligned(pts), kernels.aligned(scal)
-        out = torch.empty((G, C, 8), dtype=torch.int32, device=pts.device)
+        out = torch.empty((G, C, L), dtype=torch.int32, device=pts.device)
         if G:
             kernels.launch(f"bpp_joint_ladder_{curve.FAMILY}", pts.data_ptr(),
                            scal.data_ptr(), out.data_ptr(), G, jway, -(-nbits // WINDOW),
                            _consts_words(curve), device=pts.device)
             joint_ladder_msm_grouped.launches += 1
-    return out.reshape(*lead, N // jway, C, 8)
+    return out.reshape(*lead, N // jway, C, L)
 
 
 joint_ladder_msm_grouped.launches = 0
@@ -126,7 +131,7 @@ joint_ladder_msm_grouped.launches = 0
 
 
 def sum_points_plain(curve, points):
-    """Plain K3. (G, W, C, 8) → (G, C, 8): pad W to a power of two with
+    """Plain K3. (G, W, C, L) → (G, C, L): pad W to a power of two with
     identities, then a halving tree of adds."""
     c = curve.plain
     G, W = points.shape[:2]
@@ -141,26 +146,26 @@ def sum_points_plain(curve, points):
 
 
 def sum_points_grouped(curve, points):
-    """K3 wrapper: Σ over axis -3. points (..., W, C, 8) → (..., C, 8);
+    """K3 wrapper: Σ over axis -3. points (..., W, C, L) → (..., C, L);
     leading axes are independent groups."""
     lead = points.shape[:-3]
     W = points.shape[-3]
     if W == 0:
         return curve.identity_like(lead, points.device).clone()
-    C = curve.COORDS
-    pts = points.reshape(-1, W, C, 8)
+    C, L = curve.COORDS, curve.fp.L
+    pts = points.reshape(-1, W, C, L)
     G = pts.shape[0]
     if points.device.type == "cpu":
         out = sum_points_plain(curve, pts)
     else:
         kernels = _cuda_ready("sum_points", (pts, torch.int32))
         pts = kernels.aligned(pts)
-        out = torch.empty((G, C, 8), dtype=torch.int32, device=pts.device)
+        out = torch.empty((G, C, L), dtype=torch.int32, device=pts.device)
         if G:
             kernels.launch(f"bpp_sum_points_{curve.FAMILY}", pts.data_ptr(),
                            out.data_ptr(), G, W, _consts_words(curve), device=pts.device)
             sum_points_grouped.launches += 1
-    return out.reshape(*lead, C, 8)
+    return out.reshape(*lead, C, L)
 
 
 sum_points_grouped.launches = 0
@@ -172,7 +177,7 @@ sum_points_grouped.launches = 0
 
 
 def select_entries(curve, table, digits, signed: bool):
-    """Each lane's table entry: (lanes, C, 8). Signed digits are mag | neg<<8;
+    """Each lane's table entry: (lanes, C, L). Signed digits are mag | neg<<8;
     entry mag-1 holds mag·Q, the sign negates, magnitude 0 is the identity."""
     lanes = torch.arange(table.shape[1], device=table.device)
     d = digits.long()
@@ -187,13 +192,13 @@ def select_entries(curve, table, digits, signed: bool):
 
 def fixed_lookup_plain(curve, table, digits, signed: bool):
     """Plain K4: the sum of every lane's selected entry, as one partial
-    (1, C, 8)."""
+    (1, C, L)."""
     return sum_points_plain(curve, select_entries(curve, table, digits, signed)[None])
 
 
 def fixed_lookup_partials(curve, table, digits, signed: bool):
-    """K4 wrapper. table (nent, lanes, C, 8), digits (lanes,) int32 →
-    (P, C, 8) partial points whose sum is Σ_lanes table[digit, lane]."""
+    """K4 wrapper. table (nent, lanes, C, L), digits (lanes,) int32 →
+    (P, C, L) partial points whose sum is Σ_lanes table[digit, lane]."""
     nent, lanes = table.shape[:2]
     if nent != (8 if signed else 16) or digits.shape != (lanes,):
         raise ValueError("table/digit shapes do not match the table flavor")
@@ -203,7 +208,7 @@ def fixed_lookup_partials(curve, table, digits, signed: bool):
                           (digits, torch.int32))
     table, digits = kernels.aligned(table), digits.contiguous()
     nblocks = max(1, min(1024, -(-lanes // 1024)))
-    out = torch.empty((nblocks, curve.COORDS, 8), dtype=torch.int32,
+    out = torch.empty((nblocks, curve.COORDS, curve.fp.L), dtype=torch.int32,
                       device=table.device)
     kernels.launch(f"bpp_fixed_lookup_{curve.FAMILY}", table.data_ptr(),
                    digits.data_ptr(), out.data_ptr(), lanes, int(signed), nblocks,
@@ -216,7 +221,7 @@ fixed_lookup_partials.launches = 0
 
 
 def fixed_digits(curve, scalars, nbits: int, signed: bool):
-    """Plain-form scalars (N, 8) → lane digits (nwin·N,) int32 in the table's
+    """Plain-form scalars (N, S) → lane digits (nwin·N,) int32 in the table's
     lane order (window-major), packed mag | neg<<8 when signed."""
     fn = curve.fn
     if signed:
@@ -230,7 +235,7 @@ def fixed_digits(curve, scalars, nbits: int, signed: bool):
 
 def fixed_msm_kernel(curve, scalars, table, nbits: int, signed: bool):
     """Fixed-base MSM Σ_i s_i·P_i over the table's N base points: K4 partials,
-    then K3 over the partials. scalars plain (N, 8) → (C, 8)."""
+    then K3 over the partials. scalars plain (N, S) → (C, L)."""
     digits = fixed_digits(curve, scalars, nbits, signed)
     return sum_points_grouped(curve, fixed_lookup_partials(curve, table, digits, signed))
 
@@ -241,33 +246,33 @@ def fixed_msm_kernel(curve, scalars, table, nbits: int, signed: bool):
 
 
 def ladder_plain(curve, scalars, points, nbits: int):
-    """Plain K5. scalars (N, 8) plain form, points (N, C, 8) → (N, C, 8):
+    """Plain K5. scalars (N, S) plain form, points (N, C, L) → (N, C, L):
     s_i·P_i by the kernel's operation order, which is K2's at J = 1."""
     return joint_ladder_plain(curve, scalars[:, None], points[:, None], nbits)
 
 
 def ladder_scalar_mul(curve, scalars, points, nbits: int):
-    """K5 wrapper: s·P per lane. scalars plain (..., 8), points (..., C, 8);
+    """K5 wrapper: s·P per lane. scalars plain (..., S), points (..., C, L);
     leading axes broadcast and are flattened into lanes."""
     if not 1 <= nbits <= 256:
         raise ValueError("nbits must be in [1, 256]")
-    C = curve.COORDS
+    C, L, S = curve.COORDS, curve.fp.L, curve.fn.L
     lead = torch.broadcast_shapes(scalars.shape[:-1], points.shape[:-2])
-    pts = points.expand(*lead, C, 8).reshape(-1, C, 8)
-    scal = scalars.expand(*lead, 8).reshape(-1, 8)
+    pts = points.expand(*lead, C, L).reshape(-1, C, L)
+    scal = scalars.expand(*lead, S).reshape(-1, S)
     N = pts.shape[0]
     if points.device.type == "cpu":
         out = ladder_plain(curve, scal, pts, nbits)
     else:
         kernels = _cuda_ready("ladder", (pts, torch.int32), (scal, torch.int32))
         pts, scal = kernels.aligned(pts), kernels.aligned(scal)
-        out = torch.empty((N, C, 8), dtype=torch.int32, device=pts.device)
+        out = torch.empty((N, C, L), dtype=torch.int32, device=pts.device)
         if N:
             kernels.launch(f"bpp_ladder_{curve.FAMILY}", pts.data_ptr(),
                            scal.data_ptr(), out.data_ptr(), N, -(-nbits // WINDOW),
                            _consts_words(curve), device=pts.device)
             ladder_scalar_mul.launches += 1
-    return out.reshape(*lead, C, 8)
+    return out.reshape(*lead, C, L)
 
 
 ladder_scalar_mul.launches = 0

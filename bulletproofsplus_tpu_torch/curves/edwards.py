@@ -4,7 +4,8 @@ Port of bulletproofsplus_tpu/curves/edwards.py. Points are (..., 4, 8) limb
 tensors (X, Y, Z, T with X·Y = Z·T, Montgomery form, every coordinate < p);
 the identity is (0, 1, 1, 0). add-2008-hwcd-3 is complete for a = -1, so no
 operation special-cases identities or doublings. The same formulas, in the
-same order, are `pt_add`/`pt_dbl` in csrc/ed25519.cuh.
+same order, are `pt_add`/`pt_dbl` in csrc/ed25519.cuh; products that do not
+depend on each other go to the field as one stacked call.
 """
 from __future__ import annotations
 
@@ -36,29 +37,26 @@ class EdwardsOps(CurveOps):
     def add(self, P, Q):
         """add-2008-hwcd-3 (a = -1), complete."""
         f = self.fp
+        P, Q = torch.broadcast_tensors(P, Q)
         X1, Y1, Z1, T1 = P.unbind(-2)
         X2, Y2, Z2, T2 = Q.unbind(-2)
-        A = f.mul(f.sub(Y1, X1), f.sub(Y2, X2))
-        B = f.mul(f.add(Y1, X1), f.add(Y2, X2))
-        C = f.mul(f.mul(T1, T2), self._c(P.device)["kconst"])
-        D = f.mul(f.add(Z1, Z1), Z2)
-        E, F, G, H = f.sub(B, A), f.sub(D, C), f.add(D, C), f.add(B, A)
-        return torch.stack([f.mul(E, F), f.mul(G, H), f.mul(F, G),
-                            f.mul(E, H)], dim=-2)
+        d1, d2 = f.sub(torch.stack([Y1, Y2]), torch.stack([X1, X2]))
+        s1, s2, z2 = f.add(torch.stack([Y1, Y2, Z1]), torch.stack([X1, X2, Z1]))
+        A, B, TT, D = f.mul(torch.stack([d1, s1, T1, z2]), torch.stack([d2, s2, T2, Z2]))
+        C = f.mul(TT, self._c(P.device)["kconst"])
+        E, F = f.sub(torch.stack([B, D]), torch.stack([A, C]))
+        G, H = f.add(torch.stack([D, B]), torch.stack([C, A]))
+        return f.mul(torch.stack([E, G, F, E], dim=-2), torch.stack([F, H, G, H], dim=-2))
 
     def dbl(self, P):
         """dbl-2008-hwcd (a = -1)."""
         f = self.fp
         X1, Y1, Z1, _ = P.unbind(-2)
-        A = f.mul(X1, X1)
-        B = f.mul(Y1, Y1)
-        ZZ = f.mul(Z1, Z1)
-        t = f.add(X1, Y1)
-        t = f.mul(t, t)
+        sq = torch.stack([X1, Y1, Z1, f.add(X1, Y1)])
+        A, B, ZZ, t = f.mul(sq, sq)
         C = f.add(ZZ, ZZ)
         G = f.sub(B, A)
         E = f.sub(f.sub(t, A), B)
         F = f.sub(G, C)
         H = f.neg(f.add(A, B))
-        return torch.stack([f.mul(E, F), f.mul(G, H), f.mul(F, G),
-                            f.mul(E, H)], dim=-2)
+        return f.mul(torch.stack([E, G, F, E], dim=-2), torch.stack([F, H, G, H], dim=-2))

@@ -2,9 +2,10 @@
 square roots and the few group operations that setup, commitments and
 deserialization need.
 
-Counterpart of bulletproofsplus_tpu/golden/curves.py (secp256k1 :276-285,
-edwards25519 :287-316) and of the square root in
-bulletproofsplus_tpu/protocol/publickey.py:181-195. The port cannot import
+Counterpart of bulletproofsplus_tpu/golden/curves.py (bls12-381 G1
+:260-275, secp256k1 :276-285, edwards25519 :287-316), of the square root in
+bulletproofsplus_tpu/protocol/publickey.py:181-195 and of the subgroup check
+in bulletproofsplus_tpu/serialize.py:33-65. The port cannot import
 golden (the JAX package's __init__ imports jax), so it keeps this small copy.
 Points are affine tuples (x, y) with None as the identity. Each curve adds
 in complete projective coordinates, the same formulas as its device ops, so
@@ -15,7 +16,14 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-from ..fields.spec import ED25519_L, ED25519_P, SECP256K1_N, SECP256K1_P
+from ..fields.spec import (
+    BLS12_381_Q,
+    BLS12_381_R,
+    ED25519_L,
+    ED25519_P,
+    SECP256K1_N,
+    SECP256K1_P,
+)
 
 Affine = Optional[Tuple[int, int]]
 
@@ -128,14 +136,17 @@ class EdwardsHost(HostCurve):
 class WeierstrassHost(HostCurve):
     """Short Weierstrass y² = x³ + b (a = 0) in homogeneous projective
     (X, Y, Z) coordinates with the Renes–Costello–Batina complete addition
-    (eprint 2015/1060 algorithm 7); the identity is (0, 1, 0)."""
+    (eprint 2015/1060 algorithm 7); the identity is (0, 1, 0). `cofactor` is
+    the index of the prime-order subgroup in the curve's group."""
 
     identity = (0, 1, 0)
 
-    def __init__(self, name: str, p: int, order: int, b: int, gx: int, gy: int):
+    def __init__(self, name: str, p: int, order: int, b: int, gx: int, gy: int,
+                 cofactor: int = 1):
         self.name, self.p, self.order, self.b = name, p, order, b
         self.b3 = 3 * b % p
         self.base = (gx, gy)
+        self.cofactor = cofactor
 
     def lift(self, A: Affine):
         return self.identity if A is None else (A[0], A[1], 1)
@@ -159,9 +170,25 @@ class WeierstrassHost(HostCurve):
         r = pow(a, (self.p + 1) // 4, self.p)
         return r if r * r % self.p == a % self.p else None
 
+    def in_subgroup(self, A: Affine) -> bool:
+        """Whether A lies in the prime-order subgroup: ℓ·A is the identity
+        (Z = 0). With cofactor 1 every point on the curve does."""
+        if A is None or self.cofactor == 1:
+            return True
+        return self.mul(self.lift(A), self.order)[2] % self.p == 0
+
 
 ED25519 = EdwardsHost()
 SECP256K1 = WeierstrassHost(
     "secp256k1", SECP256K1_P, SECP256K1_N, 7,
     0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798,
     0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8)
+# G1 of bls12-381, y² = x³ + 4, with the reference's generator
+# (src/bls12_381/building_block/point/point.rs:15-18)
+BLS12_381 = WeierstrassHost(
+    "bls12_381", BLS12_381_Q, BLS12_381_R, 4,
+    int("3685416753713387016781088315183077757961620795782546409894578378688607592378376"
+        "318836054947676345821548104185464507"),
+    int("1339506544944476473020471379941921221584933875938349620426543736416511423956333"
+        "506472724655353366534992391756441569"),
+    cofactor=0x396C8C005555E1568C00AAAB0000AAAB)

@@ -1,4 +1,4 @@
-"""K1: batched Montgomery product a·b·R⁻¹ mod p over (..., 8) limb tensors.
+"""K1: batched Montgomery product a·b·R⁻¹ mod p over (..., L) limb tensors.
 
 Replaces bulletproofsplus_tpu/fields/pallas_ops.py::_mont_mul_call (the
 `pl.pallas_call` at :369, wrapper `mont_mul` :386): a schoolbook convolution
@@ -6,12 +6,14 @@ of 12-bit limbs, halving passes, a separated REDC and one carry resolve, laid
 out limb-major so the batch fills TPU lanes.
 
 On Hopper (csrc/mont_mul.cu) one thread owns one element and runs word-serial
-CIOS over 8 × 32-bit words with 32×32→64 multiplies (`fe_mul` in
-csrc/field.cuh): 64 + 64 multiply-adds, all in registers. What bounds it:
-each element moves 96 bytes (two operands, one result) for ~130 wide
-multiplies, so at the exponent stage's 262,144 elements it is bound by
-memory bandwidth and launch latency, not by the multiplier; the design reads
-and writes each word once and keeps every intermediate in registers.
+CIOS over L × 32-bit words with 32×32→64 multiplies (`fe_mul` in
+csrc/field.cuh): L² + L² multiply-adds, all in registers, at L = 8 (R =
+2^256) or L = 12 (bls12-381's Fq, R = 2^384), the field spec's width, one
+template instance each. What bounds it: each element moves 12·L bytes (two
+operands, one result) for 2·L² wide multiplies, so at the exponent stage's
+262,144 elements it is bound by memory bandwidth and launch latency, not by
+the multiplier; the design reads and writes each word once and keeps every
+intermediate in registers.
 
 The plain version below computes the same function with torch integer ops:
 int64 cannot hold a 32×32-bit product, so it splits words into 16-bit
@@ -24,10 +26,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .spec import NUM_LIMBS, FieldSpec
+from .spec import FieldSpec
 
 MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
+# Elements a pass of the plain product takes: its partial products hold up
+# to 96·L² bytes an element (0.8 GB a pass at L = 8, 1.8 GB at L = 12).
+PLAIN_CHUNK = 1 << 17
 
 
 def u64(a: torch.Tensor) -> torch.Tensor:
@@ -82,10 +87,10 @@ def carry32(t: torch.Tensor, borrow: bool = False):
 
 
 def reduce_once(t: torch.Tensor, top: torch.Tensor, p64: torch.Tensor) -> torch.Tensor:
-    """A value top·2^256 + t in [0, 2p), as canonical int64 word limbs t and
-    its top bit (0 or 1; 2p passes 2^256 when p > 2^255) → int32 limbs mod p.
-    The value is at least p when its top bit is set or t − p does not
-    borrow; t − p mod 2^256 is then the result."""
+    """A value top·2^(32L) + t in [0, 2p), as L canonical int64 word limbs t
+    and its top bit (0 or 1; 2p passes 2^256 when a 256-bit p > 2^255) →
+    int32 limbs mod p. The value is at least p when its top bit is set or
+    t − p does not borrow; t − p mod 2^(32L) is then the result."""
     d, borrow = carry32(t - p64, borrow=True)
     keep = (top == 0) & (borrow < 0)
     return i32(torch.where(keep[..., None], t, d))
@@ -120,7 +125,7 @@ def _norm16(t: torch.Tensor) -> torch.Tensor:
 
 def _consts(spec: FieldSpec, device) -> dict:
     def halves_of(x):
-        return torch.tensor([(x >> (16 * i)) & MASK16 for i in range(16)],
+        return torch.tensor([(x >> (16 * i)) & MASK16 for i in range(2 * spec.num_limbs)],
                             dtype=torch.int64, device=device)
 
     return {
@@ -142,26 +147,43 @@ def _const(spec: FieldSpec, device) -> dict:
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
                    spec: FieldSpec) -> torch.Tensor:
-    """Plain PyTorch version of K1: a·b·2^-256 mod p, inputs < p."""
+    """Plain PyTorch version of K1: a·b·R⁻¹ mod p, inputs < p, over the
+    spec's L words (R = 2^(32L)); broadcasts, and takes at most PLAIN_CHUNK
+    elements a pass."""
+    a, b = torch.broadcast_tensors(a, b)
+    L = spec.num_limbs
+    if a.numel() // L <= PLAIN_CHUNK:
+        return _mont_mul_pass(a, b, spec)
+    fa, fb = a.reshape(-1, L), b.reshape(-1, L)
+    return torch.cat([_mont_mul_pass(fa[i:i + PLAIN_CHUNK], fb[i:i + PLAIN_CHUNK], spec)
+                      for i in range(0, fa.shape[0], PLAIN_CHUNK)]).reshape(a.shape)
+
+
+def _mont_mul_pass(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    L = spec.num_limbs
     c = _const(spec, a.device)
-    # T = a·b stays in unnormalized columns (< 2^36): its low 16 columns are
-    # still ≡ T mod R, and T + m·p is normalized once at the end. T + m·p <
-    # 2R·p can reach 2^512 when p > 2^255, so it gets a 33rd column for that
-    # bit, which becomes the top bit of (T + m·p)/R < 2p.
+    # T = a·b stays in 4L unnormalized 16-bit columns (< 2L·2^32): its low
+    # 2L columns are still ≡ T mod R, and T + m·p is normalized once at the
+    # end. T + m·p < 2R·p can reach R² when p > R/2, so it gets a column
+    # more for that bit, which becomes the top bit of (T + m·p)/R < 2p.
     t = _wide(_halves(a), _halves(b))
-    m = _norm16(_wide(t[..., :16], c["np16"])[..., :16])       # T·N' mod R
+    m = _norm16(_wide(t[..., :2 * L], c["np16"])[..., :2 * L])  # T·N' mod R
     s = _norm16(F.pad(t + _wide(m, c["p16"]), (0, 1)))          # ≡ 0 mod R
-    hi = s[..., 16:32].reshape(*s.shape[:-1], NUM_LIMBS, 2)
-    return reduce_once(hi[..., 0] | (hi[..., 1] << 16), s[..., 32], c["p64"])
+    hi = s[..., 2 * L:4 * L].reshape(*s.shape[:-1], L, 2)
+    return reduce_once(hi[..., 0] | (hi[..., 1] << 16), s[..., 4 * L], c["p64"])
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor,
              spec: FieldSpec) -> torch.Tensor:
-    """K1 wrapper: broadcasting Montgomery product of (..., 8) int32 limbs.
+    """K1 wrapper: broadcasting Montgomery product of (..., L) int32 limbs,
+    L = spec.num_limbs.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one thread per element) or raises."""
+    at the spec's width (one thread per element) or raises."""
     a, b = torch.broadcast_tensors(a, b)
+    L = spec.num_limbs
+    if a.shape[-1] != L:
+        raise ValueError(f"{spec.name} elements have {L} limbs, got {a.shape[-1]}")
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, spec)
     from .. import kernels
@@ -170,11 +192,11 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
     a = kernels.aligned(a)
     b = kernels.aligned(b)
     out = torch.empty_like(a)
-    n = a.numel() // NUM_LIMBS
+    n = a.numel() // L
     if n:
-        mod = (ctypes.c_uint32 * 9)(*spec.p_words, spec.n0inv)
+        mod = (ctypes.c_uint32 * (L + 1))(*spec.p_words, spec.n0inv)
         kernels.launch("bpp_mont_mul", a.data_ptr(), b.data_ptr(),
-                       out.data_ptr(), n, mod, device=a.device)
+                       out.data_ptr(), n, L, mod, device=a.device)
         mont_mul.launches += 1
     return out
 

@@ -1,7 +1,8 @@
-"""Vectorized modular arithmetic over (..., 8) limb tensors.
+"""Vectorized modular arithmetic over (..., L) limb tensors.
 
-Port of bulletproofsplus_tpu/fields/ops.py::FieldOps. Elements are in
-Montgomery form (x·2^256 mod p) unless a method says "plain"; every method
+Port of bulletproofsplus_tpu/fields/ops.py::FieldOps. L is the field spec's
+word count (8, or 12 for bls12-381's Fq). Elements are in Montgomery form
+(x·2^(32L) mod p) unless a method says "plain"; every method
 broadcasts over leading axes and returns fully reduced limbs. `mul` is K1
 (fields/mont_mul.py): a CPU tensor takes its plain version, a CUDA tensor
 its kernel. add/sub/neg are short carry chains in torch integer ops; the
@@ -16,7 +17,7 @@ from typing import List, Sequence, Union
 import torch
 
 from .mont_mul import carry32, i32, mont_mul, mont_mul_plain, reduce_once, u64
-from .spec import NUM_LIMBS, FieldSpec, ints_to_tensor, tensor_to_ints
+from .spec import FieldSpec, ints_to_tensor, tensor_to_ints
 
 
 class FieldOps:
@@ -27,7 +28,7 @@ class FieldOps:
     def __init__(self, spec: FieldSpec, plain: bool = False):
         self.spec = spec
         self.p = spec.modulus
-        self.L = NUM_LIMBS
+        self.L = spec.num_limbs
         self.is_plain = plain
         self._mul = mont_mul_plain if plain else mont_mul
         self._dev: dict = {}
@@ -42,30 +43,30 @@ class FieldOps:
             self._dev[key] = {
                 "p64": torch.tensor(self.spec.p_words, dtype=torch.int64,
                                     device=device),
-                "one": ints_to_tensor([self.spec.r_mod_p], device)[0],
-                "one_plain": ints_to_tensor([1], device)[0],
-                "r2": ints_to_tensor([self.spec.r2_mod_p], device)[0],
+                "one": ints_to_tensor([self.spec.r_mod_p], device, self.L)[0],
+                "one_plain": ints_to_tensor([1], device, self.L)[0],
+                "r2": ints_to_tensor([self.spec.r2_mod_p], device, self.L)[0],
             }
         return self._dev[key]
 
     # -- host boundaries --------------------------------------------------
 
     def encode(self, x: Union[int, Sequence[int]], device=None) -> torch.Tensor:
-        """Int(s) → Montgomery limbs, (8,) or (N, 8)."""
+        """Int(s) → Montgomery limbs, (L,) or (N, L)."""
         if isinstance(x, int):
             return self.encode([x], device)[0]
         return ints_to_tensor([int(v) % self.p * self.spec.r_mod_p % self.p
-                               for v in x], device)
+                               for v in x], device, self.L)
 
     def decode(self, t: torch.Tensor) -> Union[int, List[int]]:
-        """Montgomery limbs → int (for (8,)) or flat list of ints."""
+        """Montgomery limbs → int (for (L,)) or flat list of ints."""
         vals = [v * self.spec.rinv % self.p for v in tensor_to_ints(t)]
         return vals[0] if t.dim() == 1 else vals
 
     def encode_plain(self, x: Union[int, Sequence[int]], device=None) -> torch.Tensor:
         if isinstance(x, int):
             return self.encode_plain([x], device)[0]
-        return ints_to_tensor([int(v) % self.p for v in x], device)
+        return ints_to_tensor([int(v) % self.p for v in x], device, self.L)
 
     def decode_plain(self, t: torch.Tensor) -> Union[int, List[int]]:
         vals = tensor_to_ints(t)
@@ -151,7 +152,7 @@ class FieldOps:
         return allinv, invs
 
     def powers_type2(self, x, n: int):
-        """[x, x², ..., xⁿ] as (..., n, 8) for x of shape (..., 8)."""
+        """[x, x², ..., xⁿ] as (..., n, L) for x of shape (..., L)."""
         return self.scan_mul(x.unsqueeze(-2).expand(*x.shape[:-1], n, self.L)
                              .contiguous(), -2)
 
@@ -178,13 +179,14 @@ class FieldOps:
         return self.p.bit_length()
 
     def scalar_digits(self, s, nbits: int | None = None, c: int = 4):
-        """Plain-form limbs (..., 8) → c-bit digits (..., nwin) int32,
-        LSB first. c must divide 32 so no digit straddles two words."""
+        """Plain-form limbs (..., L) → c-bit digits (..., nwin) int32,
+        LSB first, nbits by default all 32·L bits of the limbs. c must divide
+        32 so no digit straddles two words."""
         if 32 % c:
             raise ValueError("window must divide the limb width")
-        nbits = nbits or NUM_LIMBS * 32
+        nbits = nbits or self.L * 32
         nwin = -(-nbits // c)
-        if (nwin - 1) * c // 32 >= NUM_LIMBS:
+        if (nwin - 1) * c // 32 >= self.L:
             raise ValueError("nbits exceeds limb capacity")
         pos = torch.arange(nwin, device=s.device) * c
         words = u64(s)[..., pos // 32]
@@ -193,7 +195,7 @@ class FieldOps:
     def signed_window_count(self, nbits: int | None = None, c: int = 4) -> int:
         """Windows of the signed c-bit decomposition: one more than
         ceil(nbits/c) iff the top digit plus a carry can exceed 2^(c-1)."""
-        nbits = nbits or NUM_LIMBS * 32
+        nbits = nbits or self.L * 32
         nwin = -(-nbits // c)
         top_max = ((1 << nbits) - 1) >> (c * (nwin - 1))
         return nwin + (1 if top_max + 1 > (1 << (c - 1)) else 0)
@@ -203,7 +205,7 @@ class FieldOps:
         in [0, 2^(c-1)], negative-sign bools), LSB first. Digit j becomes
         d_j + carry_in − 2^c·carry_out with carry_out = (d_j + carry_in >
         2^(c-1)); a sequential carry over the windows."""
-        nbits = nbits or NUM_LIMBS * 32
+        nbits = nbits or self.L * 32
         nwin = -(-nbits // c)
         nw1 = self.signed_window_count(nbits, c)
         half = 1 << (c - 1)

@@ -4,7 +4,9 @@ The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface, loaded with ctypes; nothing includes PyTorch's headers.
 Each point-kernel source builds once per point family (csrc/family.cuh:
 -DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
-bpp_<kernel>_weierstrass), and all nine compilations run at once. The build
+bpp_<kernel>_weierstrass at 8 words a coordinate, 2 gives
+bpp_<kernel>_weierstrass12 at 12), and all thirteen compilations run at
+once; K1 (mont_mul.cu) holds both of its widths in one unit. The build
 runs at first use, into bulletproofsplus_tpu_torch/build/ (git-ignored),
 keyed by a hash of the sources, so a checkout builds everything it runs from
 its own files.
@@ -30,7 +32,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("mont_mul.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu",
            "ladder.cu")
 POINT_SOURCES = SOURCES[1:]
-FAMILIES = ("edwards", "weierstrass")     # BPP_FAMILY 0 and 1
+FAMILIES = ("edwards", "weierstrass", "weierstrass12")     # BPP_FAMILY 0, 1, 2
 HEADERS = ("field.cuh", "points.cuh", "family.cuh", "ed25519.cuh", "weierstrass.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -43,7 +45,7 @@ _POINT_SIGNATURES = {
     "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
 }
 # entry point: argument types before the trailing stream pointer
-SIGNATURES = {"bpp_mont_mul": [_P, _P, _P, _LL, _U32P],
+SIGNATURES = {"bpp_mont_mul": [_P, _P, _P, _LL, _I, _U32P],
               **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
                  for fam in FAMILIES}}
 

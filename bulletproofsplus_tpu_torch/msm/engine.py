@@ -7,8 +7,9 @@ the groups. J follows the lane count as in engine.py:241-262. The JAX
 package's width canonicalization and XLA scan ladder exist to bound TPU
 compile counts; PyTorch runs eagerly, so the port has one path.
 
-Scalars are PLAIN-form (non-Montgomery) (..., N, 8) limbs over the scalar
-field; points are (..., N, C, 8) with C = curve.COORDS.
+Scalars are PLAIN-form (non-Montgomery) (..., N, S) limbs over the scalar
+field, S = curve.fn.L; points are (..., N, C, L) with C = curve.COORDS and
+L = curve.fp.L.
 """
 from __future__ import annotations
 
@@ -42,14 +43,15 @@ def msm(curve, scalars, points, nbits: int | None = None):
     nbits = nbits or curve.fn.order_bits
     lead = points.shape[:-3]
     W = points.shape[-3]
-    scalars = scalars.expand(*lead, W, 8)
+    S = curve.fn.L
+    scalars = scalars.expand(*lead, W, S)
     lanes = W
     for d in lead:
         lanes *= d
     J = joint_width(lanes)
     W2 = -(-W // J) * J
     if W2 != W:
-        scalars = torch.cat([scalars, scalars.new_zeros(*lead, W2 - W, 8)], dim=-2)
+        scalars = torch.cat([scalars, scalars.new_zeros(*lead, W2 - W, S)], dim=-2)
         pad = curve.identity_like((*lead, W2 - W), points.device)
         points = torch.cat([points, pad], dim=-3)
     prods = joint_ladder_msm_grouped(curve, scalars, points, nbits, J)

@@ -10,10 +10,12 @@ after which Σ_i s_i·P_i = Σ_i Σ_j T[d_ij, j, i], a lookup and one add per
 entries k ∈ [1, 8] (half the memory) for balanced digits; negative digits
 negate the selected point and digit 0 selects the identity.
 
-The table is entry-major (nent, nwin·N, C, 8), which is also the kernel's
+The table is entry-major (nent, nwin·N, C, L), which is also the kernel's
 layout, so no separate kernel layout exists. At 2mn = 2048 edwards25519
 points the unsigned table holds 16·64·2048 points of 128 bytes: 268 MB; at
-2mn = 8192 secp256k1 points 16·64·8192 points of 96 bytes: 805 MB.
+2mn = 8192 secp256k1 points 16·64·8192 points of 96 bytes: 805 MB; at
+2mn = 32768 bls12-381 points 16·64·32768 points of 144 bytes: 4.83 GB, still
+under the 7 GiB budget, so every cell's verifier takes the unsigned table.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ DEFAULT_MAX_BYTES = 7 * 1024**3
 
 
 def point_bytes(curve) -> int:
-    """Device bytes of one point: C coordinates of 8 × 32-bit limbs."""
+    """Device bytes of one point: C coordinates of L × 32-bit limbs."""
     return curve.COORDS * curve.fp.L * 4
 
 
@@ -44,8 +46,8 @@ def fixed_base_mode(curve, n_points: int, max_bytes: int = DEFAULT_MAX_BYTES):
     """"unsigned" when its table fits max_bytes (one select fewer per
     lookup), else "signed" when that fits, else None (no table fits; the
     JAX package then runs the generator lanes on the ladder, which the
-    port does not: signed tables fit up to 2mn ≈ 110,000 on edwards25519
-    and ≈ 146,000 on secp256k1)."""
+    port does not: signed tables fit up to 2mn ≈ 110,000 on edwards25519,
+    ≈ 146,000 on secp256k1 and ≈ 102,000 on bls12-381)."""
     if table_bytes(curve, n_points) <= max_bytes:
         return "unsigned"
     if table_bytes(curve, n_points, signed=True) <= max_bytes:
@@ -54,7 +56,7 @@ def fixed_base_mode(curve, n_points: int, max_bytes: int = DEFAULT_MAX_BYTES):
 
 
 def _window_chain(curve, points, nwin: int):
-    """Q[j] = 2^(4j)·P: (nwin, N, C, 8)."""
+    """Q[j] = 2^(4j)·P: (nwin, N, C, L)."""
     chain = [points]
     for _ in range(nwin - 1):
         q = chain[-1]
@@ -65,7 +67,7 @@ def _window_chain(curve, points, nwin: int):
 
 
 def precompute_tables(curve, points, nbits: int | None = None):
-    """Unsigned table (16, nwin·N, C, 8) for base points (N, C, 8):
+    """Unsigned table (16, nwin·N, C, L) for base points (N, C, L):
     T[0] = identity, T[k] = T[k-1] + Q (the JAX package's scan order)."""
     nbits = nbits or curve.fn.order_bits
     Q = _window_chain(curve, points, -(-nbits // WINDOW)).flatten(0, 1)
@@ -76,7 +78,7 @@ def precompute_tables(curve, points, nbits: int | None = None):
 
 
 def precompute_tables_signed(curve, points, nbits: int | None = None):
-    """Signed table (8, nwin_s·N, C, 8): entry k-1 = k·Q for k ∈ [1, 8]."""
+    """Signed table (8, nwin_s·N, C, L): entry k-1 = k·Q for k ∈ [1, 8]."""
     nbits = nbits or curve.fn.order_bits
     nwin = curve.fn.signed_window_count(nbits, WINDOW)
     Q = _window_chain(curve, points, nwin).flatten(0, 1)
@@ -87,7 +89,7 @@ def precompute_tables_signed(curve, points, nbits: int | None = None):
 
 
 def fixed_msm(curve, scalars, table, nbits: int | None = None):
-    """Σ_i scalars[i]·P_i over the table's base points; scalars plain (N, 8).
+    """Σ_i scalars[i]·P_i over the table's base points; scalars plain (N, S).
     The flavor follows the table's entry count (8 = signed)."""
     nbits = nbits or curve.fn.order_bits
     return fixed_msm_kernel(curve, scalars, table, nbits,

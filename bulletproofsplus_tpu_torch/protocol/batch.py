@@ -32,7 +32,7 @@ def verify_stacked(curve, pk, n: int, m: int, batch: ProofBatch, V_all,
                    challenges, W) -> bool:
     """Whether Σ_k w_k·(proof k's verification MSM) is the identity.
 
-    batch: K proofs on pk's device; V_all (K, m, C, 8); challenges the
+    batch: K proofs on pk's device; V_all (K, m, C, L); challenges the
     (ys, zs, ess, efs) of replay_batch; W (K, 8) Montgomery weights."""
     fn = curve.fn
     dev = pk.device
@@ -71,7 +71,7 @@ def batch_verify(curve, pk, n: int, proofs, commitment_lists,
     """Verify K proofs over one pk in a single MSM; raises VerificationError.
 
     proofs: a ProofBatch or a sequence of RangeProof; commitment_lists: a
-    (K, m, C, 8) tensor or K equal-length lists of (C, 8) points, all on
+    (K, m, C, L) tensor or K equal-length lists of (C, L) points, all on
     pk's device. transcripts: K DeterministicTranscript(m) (the only mode
     ported so far; there is no default). rng: callable returning the 128-bit
     RLC weights; the default draws them from `secrets`, and must stay

@@ -20,7 +20,7 @@ from ..device import entry_device
 
 @dataclasses.dataclass
 class PublicKey:
-    """Generator set of one curve backend: tensors (C, 8) and (length, C, 8),
+    """Generator set of one curve backend: tensors (C, L) and (length, C, L),
     C = curve.COORDS."""
 
     curve: object
@@ -66,7 +66,7 @@ class PublicKey:
                          self.H_vec[:mn], self._fb_tables, self._gh_proj)
 
     def commitment(self, v: int, gamma: int) -> torch.Tensor:
-        """Pedersen commitment v·g + γ·h (publickey.rs:50-52): a (C, 8) point
+        """Pedersen commitment v·g + γ·h (publickey.rs:50-52): a (C, L) point
         on the key's device, computed on the host."""
         hc = self.curve.host
         if self._gh_proj is None:

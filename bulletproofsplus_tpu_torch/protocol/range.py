@@ -40,7 +40,7 @@ from .wip import WipProof
 class RangeProof:
     """A (the bit commitment) + the WIP argument (range/mod.rs:25-28)."""
 
-    A: torch.Tensor   # (C, 8), C = curve.COORDS
+    A: torch.Tensor   # (C, L), C = curve.COORDS, L = curve.fp.L
     proof: WipProof
 
 
@@ -48,11 +48,11 @@ class RangeProof:
 class ProofBatch:
     """K homogeneous range proofs (same n, m) as stacked tensors."""
 
-    A: torch.Tensor        # (K, C, 8)
-    L_vec: torch.Tensor    # (K, rounds, C, 8)
-    R_vec: torch.Tensor    # (K, rounds, C, 8)
-    A_wip: torch.Tensor    # (K, C, 8)
-    B: torch.Tensor        # (K, C, 8)
+    A: torch.Tensor        # (K, C, L)
+    L_vec: torch.Tensor    # (K, rounds, C, L)
+    R_vec: torch.Tensor    # (K, rounds, C, L)
+    A_wip: torch.Tensor    # (K, C, L)
+    B: torch.Tensor        # (K, C, L)
     r_prime: torch.Tensor  # (K, 8) Montgomery
     s_prime: torch.Tensor  # (K, 8)
     d_prime: torch.Tensor  # (K, 8)
@@ -94,7 +94,7 @@ class ProofBatch:
 @dataclasses.dataclass
 class RangeProver:
     """Witness container (range/prover.rs:13-42): values, blinds and their
-    commitments, (C, 8) points on the key's device."""
+    commitments, (C, L) points on the key's device."""
 
     v_vec: List[int] = dataclasses.field(default_factory=list)
     gamma_vec: List[int] = dataclasses.field(default_factory=list)
@@ -127,7 +127,7 @@ def validate(pk, n: int, m: int) -> None:
 
 
 def stack_commitments(commitment_lists) -> torch.Tensor:
-    """(K, m, C, 8) commitments from a tensor (passed through) or K lists."""
+    """(K, m, C, L) commitments from a tensor (passed through) or K lists."""
     if isinstance(commitment_lists, torch.Tensor):
         return commitment_lists
     if any(len(V) != len(commitment_lists[0]) for V in commitment_lists):
@@ -296,12 +296,12 @@ def vinputs_single_batched(fn, n: int, y_m, z_m, challenges, e, r_prime,
 def bit_commitment_batched(curve, alpha_plain, bits, G_vec, H_vec, h):
     """K bit commitments A_k = h·α_k + Σ_i (bits[k, i] ? G_i : −H_i)
     (range/mod.rs:96-106, :259-277). alpha_plain (K, 8) plain form, bits
-    (K, mn) bool → (K, C, 8): h·α_k by K5 over K lanes, then one K3 launch
+    (K, mn) bool → (K, C, L): h·α_k by K5 over K lanes, then one K3 launch
     over the (K, mn + 1) points."""
     K = bits.shape[0]
     h_alpha = ladder_scalar_mul(curve, alpha_plain, h.expand(K, *h.shape),
                                 curve.fn.order_bits)
-    chosen = curve.select(bits, G_vec, curve.neg(H_vec))     # (K, mn, C, 8)
+    chosen = curve.select(bits, G_vec, curve.neg(H_vec))     # (K, mn, C, L)
     return sum_points_grouped(curve, torch.cat([h_alpha[:, None], chosen], dim=1))
 
 

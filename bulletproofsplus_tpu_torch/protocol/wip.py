@@ -27,10 +27,10 @@ from ..curves.cuda_curve import joint_ladder_msm_grouped, sum_points_grouped
 class WipProof:
     """2·log2(n) points + A, B and three Montgomery-form scalars."""
 
-    L_vec: torch.Tensor    # (rounds, C, 8), C = curve.COORDS
-    R_vec: torch.Tensor    # (rounds, C, 8)
-    A: torch.Tensor        # (C, 8)
-    B: torch.Tensor        # (C, 8)
+    L_vec: torch.Tensor    # (rounds, C, L), C = curve.COORDS, L = curve.fp.L
+    R_vec: torch.Tensor    # (rounds, C, L)
+    A: torch.Tensor        # (C, L)
+    B: torch.Tensor        # (C, L)
     r_prime: torch.Tensor  # (8,)
     s_prime: torch.Tensor  # (8,)
     d_prime: torch.Tensor  # (8,)
@@ -50,7 +50,8 @@ def joint_rows_msm(curve, scalars_plain, points, nbits: int):
     Wp = -(-W // J) * J
     if Wp != W:
         scalars_plain = torch.cat(
-            [scalars_plain, scalars_plain.new_zeros(*lead, Wp - W, 8)], dim=-2)
+            [scalars_plain, scalars_plain.new_zeros(*lead, Wp - W, scalars_plain.shape[-1])],
+            dim=-2)
         points = torch.cat(
             [points, curve.identity_like((*lead, Wp - W), points.device)], dim=-3)
     return sum_points_grouped(
@@ -61,9 +62,9 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
                             es_m, dLs_m, dRs_m, r_m, s_m, delta_m, eta_m, ef_m):
     """The whole fold of K proofs whose challenges and blinds are known
     ahead (wip:36-227). a, b, power_of_y (K, n, 8) and α (K, 8) Montgomery;
-    G, H (n, C, 8), g, h (C, 8) the key's generators; es/dLs/dRs
+    G, H (n, C, L), g, h (C, L) the key's generators; es/dLs/dRs
     (K, log2 n, 8); r, s, δ, η, e_final (K, 8). Returns (L_vec, R_vec
-    (K, log2 n, C, 8), A, B (K, C, 8), r', s', δ' (K, 8))."""
+    (K, log2 n, C, L), A, B (K, C, L), r', s', δ' (K, 8))."""
     fn = curve.fn
     K, n = a.shape[:2]
     logn = n.bit_length() - 1
@@ -102,7 +103,7 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
             P = torch.stack([
                 torch.cat([G2, H1, gk[:, None], hk[:, None]], dim=1),
                 torch.cat([G1, H2, gk[:, None], hk[:, None]], dim=1),
-            ], dim=1)                                          # (K, 2, W, C, 8)
+            ], dim=1)                                          # (K, 2, W, C, L)
             LR = joint_rows_msm(curve, fn.from_mont(S), P, nbits)
             Ls.append(LR[:, 0])
             Rs.append(LR[:, 1])
@@ -116,9 +117,9 @@ def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,
                 [e_inv, fn.mul(ynhat_inv, e_m), e_m, e_inv], dim=1))   # (K, 4, 8)
             pair_p = torch.cat([torch.stack([G1, G2], dim=2),
                                 torch.stack([H1, H2], dim=2)], dim=1)
-            pair_s = torch.cat([fold4[:, None, :2].expand(K, half, 2, 8),
-                                fold4[:, None, 2:].expand(K, half, 2, 8)], dim=1)
-            out = joint_ladder_msm_grouped(curve, pair_s.reshape(K, 4 * half, 8),
+            pair_s = torch.cat([fold4[:, None, :2].expand(K, half, 2, fn.L),
+                                fold4[:, None, 2:].expand(K, half, 2, fn.L)], dim=1)
+            out = joint_ladder_msm_grouped(curve, pair_s.reshape(K, 4 * half, fn.L),
                                            pair_p.reshape(K, 4 * half, *g.shape), nbits, 2)
             Gk, Hk = out[:, :half], out[:, half:]
             alpha = fn.add(alpha, fn.add(fn.mul(es_sqr[:, r], dLs_m[:, r]),

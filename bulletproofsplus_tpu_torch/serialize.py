@@ -9,6 +9,10 @@ the subgroup check of :37-65. Fixed length per curve:
 - secp256k1: 33 bytes, SEC1 compressed: 02/03 (parity of y) ‖ x
   big-endian; the identity is 0x00 ‖ 32 zero bytes. The cofactor is 1, so a
   point on the curve is in the group.
+- bls12-381 G1: 49 bytes, the same scheme over the 48-byte base field:
+  02/03 ‖ x big-endian, the identity 0x00 ‖ 48 zero bytes. The cofactor is
+  0x396C8C005555E1568C00AAAB0000AAAB, so decoding also checks the subgroup
+  (one host scalar multiplication per point, as on edwards25519).
 
 A proof is [rounds:u8] ‖ A ‖ L_vec ‖ R_vec ‖ A_wip ‖ B ‖ r' ‖ s' ‖ δ' with
 32-byte little-endian scalars. Malformed, off-curve or non-subgroup bytes
@@ -28,8 +32,12 @@ from .errors import FormatError
 SCALAR_LEN = 32
 
 
+def _fp_bytes(curve) -> int:
+    return (curve.fp.p.bit_length() + 7) // 8
+
+
 def point_len(curve) -> int:
-    return 32 if curve.COORDS == 4 else 33
+    return 32 if curve.COORDS == 4 else _fp_bytes(curve) + 1
 
 
 def point_bytes(curve, P: Affine) -> bytes:
@@ -40,9 +48,9 @@ def point_bytes(curve, P: Affine) -> bytes:
         enc[31] |= (x & 1) << 7
         return bytes(enc)
     if P is None:
-        return bytes(33)
+        return bytes(point_len(curve))
     x, y = P
-    return bytes([2 + (y & 1)]) + x.to_bytes(32, "big")
+    return bytes([2 + (y & 1)]) + x.to_bytes(_fp_bytes(curve), "big")
 
 
 def point_from_bytes(curve, data: bytes) -> Affine:
@@ -79,6 +87,8 @@ def point_from_bytes(curve, data: bytes) -> Affine:
         raise FormatError()
     if y & 1 != data[0] - 2:
         y = hc.p - y
+    if not hc.in_subgroup((x, y)):
+        raise FormatError("point not in the prime-order subgroup")
     return (x, y)
 
 
@@ -149,7 +159,8 @@ def points_from_bytes(curve, data: bytes) -> List[Affine]:
 
 def read_fixture(data: bytes):
     """Parse a statement fixture (scripts/make_torch_fixtures.py): returns
-    (curve name, n, m, [(commitment bytes (m points), proof bytes)]).
+    (curve name, n, m, [(commitment bytes (m points), proof bytes)]). Points
+    are as long as the named curve's (32, 33 or 49 bytes).
 
     BPPF2 names its curve and holds n and m as u16; BPPF1, the format of
     the edwards25519 fixture, holds them as u8 and implies edwards25519."""

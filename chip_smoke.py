@@ -4,13 +4,15 @@
 Phase 1 builds the kernels from bulletproofsplus_tpu_torch/csrc and prints
 the card's name and power limit (nvidia-smi). Then, for each curve in
 turn (edwards25519 at n = 64, m = 16 from its BPPF1 fixture, secp256k1 at
-n = 64, m = 64 from its BPPF2 fixture; K = 256 for both), any failure
-exiting nonzero before the final line:
+n = 64, m = 64 and bls12-381 G1 at n = 64, m = 256 from their BPPF2
+fixtures; K = 256 for all three), any failure exiting nonzero before the
+final line:
   2. hold K1 (Montgomery multiply) against its plain PyTorch version at both
      of the curve's moduli on 262,144 elements that include p − 1 and values
-     in [p/2, p), and K2 (joint ladder, J = 8) and K3 (grouped point sum) at
-     the shapes of the verify batch below (edwards25519: 1,249 groups;
-     secp256k1: 2,913), and time both;
+     in [p/2, p) (bls12-381's Fq at 12 words a value), and K2 (joint ladder,
+     J = 8) and K3 (grouped point sum) at the shapes of the verify batch
+     below (edwards25519: 1,249 groups; secp256k1: 2,913; bls12-381: 9,185,
+     K2 compared on its first 4,096), and time both;
   3. build PublicKey.new(n·m) and its fixed-base tables on the card, then
      hold K4 (fixed-base lookup) against its plain version on those tables
      (unsigned) and on a smaller signed table;
@@ -34,10 +36,12 @@ exiting nonzero before the final line:
      equal the fixture's bytes) and batch-prove them on the card: every
      proof must equal the committed golden-made bytes;
   9. batch-prove the K = 256 statements of bench.py (v = (7k + 3i + 2) mod
-     2^n, γ = 2i + k + 3), committed outside the timed window, with every
-     launch counter at 0 before the first run; K1, K2, K3 and K5 must have
-     run; then batch-verify the proven batch (accept) and a tampered copy
-     (reject);
+     2^n, γ = 2i + k + 3), committed outside the timed window by host running
+     sums (V(k, i) = V(k, i − 1) + 3g + 2h, V(k, 0) = V(k − 1, 0) + 7g + h,
+     one shared inversion; a sample must equal PublicKey.commitment), with
+     every launch counter at 0 before the first run; K1, K2, K3 and K5 must
+     have run; then batch-verify the proven batch (accept) and a tampered
+     copy (reject);
  10. prove and verify one m = 1 statement at n = 64.
 Last, it prints each curve's batch timings on their own lines, the kernels'
 JSON line (one row for each curve, kernel and shape held above: time, plain
@@ -60,10 +64,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "data")
 FIXTURES = {"edwards25519": os.path.join(DATA, "ed25519_n64_m16_det.bin"),
-            "secp256k1": os.path.join(DATA, "secp256k1_n64_m64_det.bin")}
+            "secp256k1": os.path.join(DATA, "secp256k1_n64_m64_det.bin"),
+            "bls12_381": os.path.join(DATA, "bls12_381_n64_m256_det.bin")}
 K_BATCH = 256
 K1_ELEMENTS = 262_144
 PLAIN_PREFIX = 16_384   # groups on which K2 at the prover's shapes meets its plain version
+# groups on which K2 at the verify shape meets its plain version, where that
+# is not all of them (the plain ladder at 12 words and 9,185 groups)
+VERIFY_PREFIX = {"bls12_381": 4_096}
 DEVICE = "cuda:0"
 SOURCES = {"K1": ("mont_mul", "mont_mul.cu", "fields/pallas_ops.py:369"),
            "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
@@ -126,8 +134,8 @@ def coord_err(field):
         bad = (ker != ref).any(-1).reshape(-1)
         if not bool(bad.any()):
             return 0
-        return int_err(field.decode_plain(ker.reshape(-1, 8)[bad]),
-                       field.decode_plain(ref.reshape(-1, 8)[bad]))
+        return int_err(field.decode_plain(ker.reshape(-1, field.L)[bad]),
+                       field.decode_plain(ref.reshape(-1, field.L)[bad]))
     return err
 
 
@@ -156,7 +164,7 @@ def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None):
 
 
 def random_scalars(count: int, gen, device):
-    """count seeded plain-form scalars below 2^252 (< either group order)."""
+    """count seeded plain-form scalars below 2^252 (< every group order)."""
     s = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32,
                       generator=gen, device=device)
     s[:, 7] &= 0x0FFFFFFF
@@ -175,6 +183,30 @@ def random_points(curve, count: int, seed: int, device):
         pts.append(cur)
         cur = hc.add(cur, step)
     return curve.encode_points(hc.to_affine(pts), device)
+
+
+def bench_commitments(curve, pk, n: int, m: int, K: int | None = None):
+    """The commitments (K, m, C, L) of bench.py's statements,
+    v = 7k + 3i + 2 and γ = 2i + k + 3, by host running sums: V(k, i) =
+    V(k, i − 1) + 3g + 2h and V(k, 0) = V(k − 1, 0) + 7g + h, one host add
+    each and one shared inversion."""
+    K = K or K_BATCH
+    if 7 * (K - 1) + 3 * (m - 1) + 2 >= 1 << n:
+        raise ValueError("bench values would wrap mod 2^n")
+    hc = curve.host
+    g, h = (hc.lift(A) for A in curve.decode_points(torch.stack([pk.g, pk.h])))
+    step_i = hc.add(hc.mul(g, 3), hc.mul(h, 2))
+    step_k = hc.add(hc.mul(g, 7), h)
+    row = hc.add(hc.mul(g, 2), hc.mul(h, 3))
+    pts = []
+    for _ in range(K):
+        cur = row
+        for _ in range(m):
+            pts.append(cur)
+            cur = hc.add(cur, step_i)
+        row = hc.add(row, step_k)
+    V = curve.encode_points(hc.to_affine(pts), pk.device)
+    return V.reshape(K, m, *V.shape[1:])
 
 
 def field_operands(f, count: int, rnd, device):
@@ -201,7 +233,6 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         curve_ops,
         prove,
         serialize,
-        stack_commitments,
         verify,
     )
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
@@ -216,7 +247,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     dev = torch.device(DEVICE)
     curve = curve_ops(name)
     fn, fp = curve.fn, curve.fp
-    C = curve.COORDS
+    C, L, S = curve.COORDS, fp.L, fn.L
     rnd = random.Random(seed)
     nbits = fn.order_bits
 
@@ -241,12 +272,14 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
 
     pts = random_points(curve, G * J, rnd.randrange(1 << 30), dev)
     scal = fn.encode_plain([rnd.randrange(fn.p) for _ in range(G * J)], dev)
+    pre = VERIFY_PREFIX.get(name)
+    Gp = G if pre is None else pre
     ker = hold(held, (name, "K2", f"J={J}, {G} groups"),
                lambda: cc.joint_ladder_msm_grouped(curve, scal, pts, nbits, J),
-               lambda: cc.joint_ladder_plain(curve, scal.reshape(G, J, 8),
-                                             pts.reshape(G, J, C, 8), nbits),
-               coord_err(fp), 3)
-    grp = ker[None]                                   # (1, G, C, 8): the MSM's sum
+               lambda: cc.joint_ladder_plain(curve, scal[:Gp * J].reshape(Gp, J, S),
+                                             pts[:Gp * J].reshape(Gp, J, C, L), nbits),
+               coord_err(fp), 3, prefix=pre)
+    grp = ker[None]                                   # (1, G, C, L): the MSM's sum
     hold(held, (name, "K3", f"1 x {G} points"),
          lambda: cc.sum_points_grouped(curve, grp), lambda: cc.sum_points_plain(curve, grp),
          affine_err(curve), 20)
@@ -257,7 +290,8 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     tables = pk.fixed_tables(mn)
     torch.cuda.synchronize()
     log(f"PublicKey.new({mn}) + fixed tables {tuple(tables.shape)} "
-        f"({tables.numel() * 4 / 1e6:.0f} MB) in {time.time() - t:.1f} s")
+        f"({tables.numel() * 4 / 1e6:.0f} MB) in {time.time() - t:.1f} s; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     gen_s = fn.encode_plain([rnd.randrange(fn.p) for _ in range(2 * mn)], dev)
     dig = cc.fixed_digits(curve, gen_s, nbits, signed=False)
     hold(held, (name, "K4", f"{dig.numel()} lanes"),
@@ -319,7 +353,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         two = batch.take(slice(0, 2))
         return vinputs_multiple_batched(
             f, n, m, f.encode(ys, device), f.encode(zs, device),
-            f.encode([e for es in ess for e in es], device).reshape(2, -1, 8),
+            f.encode([e for es in ess for e in es], device).reshape(2, -1, f.L),
             f.encode(efs, device), two.r_prime.to(device),
             two.s_prime.to(device), two.d_prime.to(device))
 
@@ -344,7 +378,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     # round 0's fold: (G1_i, G2_i) and (H1_i, H2_i) pairs of every proof
     fold_p = torch.cat([torch.stack([Gv[:half], Gv[half:]], 1),
                         torch.stack([Hv[:half], Hv[half:]], 1)])
-    fold_p = fold_p.expand(K_BATCH, *fold_p.shape).reshape(-1, C, 8).clone()
+    fold_p = fold_p.expand(K_BATCH, *fold_p.shape).reshape(-1, C, L).clone()
     fold_p[3] = curve.identity(dev)
     fold_s = random_scalars(fold_p.shape[0], gen, dev)
     fold_s[:2] = 0
@@ -352,8 +386,8 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     pre = min(PLAIN_PREFIX, Gf)
     hold(held, (name, "K2", f"J=2, {Gf} groups"),
          lambda: cc.joint_ladder_msm_grouped(curve, fold_s, fold_p, nbits, 2),
-         lambda: cc.joint_ladder_plain(curve, fold_s[:2 * pre].reshape(pre, 2, 8),
-                                       fold_p[:2 * pre].reshape(pre, 2, C, 8), nbits),
+         lambda: cc.joint_ladder_plain(curve, fold_s[:2 * pre].reshape(pre, 2, S),
+                                       fold_p[:2 * pre].reshape(pre, 2, C, L), nbits),
          coord_err(fp), 3, prefix=pre)
     del fold_p, fold_s
 
@@ -365,17 +399,17 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     gh = torch.stack([pk.g, pk.h])
     lr_p = torch.stack([torch.cat([Gv[half:], Hv[:half], gh, pad]),
                         torch.cat([Gv[:half], Hv[half:], gh, pad])])
-    lr_p = lr_p.expand(K_BATCH, *lr_p.shape).reshape(-1, C, 8)
+    lr_p = lr_p.expand(K_BATCH, *lr_p.shape).reshape(-1, C, L)
     lr_s = random_scalars(lr_p.shape[0], gen, dev)
-    lr_s.view(K_BATCH, 2, Wp, 8)[:, :, W:] = 0
+    lr_s.view(K_BATCH, 2, Wp, S)[:, :, W:] = 0
     Gl = lr_p.shape[0] // 4
     pre = min(PLAIN_PREFIX, Gl)
     lr = hold(held, (name, "K2", f"J=4, {Gl} groups"),
               lambda: cc.joint_ladder_msm_grouped(curve, lr_s, lr_p, nbits, 4),
-              lambda: cc.joint_ladder_plain(curve, lr_s[:4 * pre].reshape(pre, 4, 8),
-                                            lr_p[:4 * pre].reshape(pre, 4, C, 8), nbits),
+              lambda: cc.joint_ladder_plain(curve, lr_s[:4 * pre].reshape(pre, 4, S),
+                                            lr_p[:4 * pre].reshape(pre, 4, C, L), nbits),
               coord_err(fp), 3, prefix=pre)
-    lr = lr.reshape(2 * K_BATCH, Wp // 4, C, 8)
+    lr = lr.reshape(2 * K_BATCH, Wp // 4, C, L)
     hold(held, (name, "K3", f"{lr.shape[0]} x {lr.shape[1]} points"),
          lambda: cc.sum_points_grouped(curve, lr), lambda: cc.sum_points_plain(curve, lr),
          affine_err(curve), 20)
@@ -416,13 +450,14 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
 
     # -- 9. bench.py's batch: prove K = 256, then verify it -----------------
     t = time.time()
-    bench = []
-    for k in range(K_BATCH):
-        pr = RangeProver()
-        for i in range(m):
-            pr.commit(pk, (7 * k + 3 * i + 2) % (1 << n), 2 * i + k + 3)
-        bench.append(pr)
-    V_bench = stack_commitments([pr.commitment_vec for pr in bench])
+    V_bench = bench_commitments(curve, pk, n, m)
+    bench = [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
+                         gamma_vec=[2 * i + k + 3 for i in range(m)],
+                         commitment_vec=list(V_bench[k].unbind(0)))
+             for k in range(K_BATCH)]
+    for k, i in ((0, 0), (0, m - 1), (K_BATCH - 1, 0), (K_BATCH // 2, m // 2)):
+        if not torch.equal(V_bench[k, i], pk.commitment(bench[k].v_vec[i], bench[k].gamma_vec[i])):
+            raise AssertionError(f"bench commitment ({k}, {i}) differs from PublicKey.commitment")
     log(f"committed {K_BATCH * m} bench witnesses in {time.time() - t:.1f} s")
 
     def run_prove():
@@ -529,8 +564,8 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes Montgomery products on 8×32-bit
-            # limbs or point ladders and sums on either curve family
+            # no single PyTorch call computes Montgomery products on 8- or
+            # 12-word limbs or point ladders and sums on any curve family
             "library_ms": None})
     for line in lines:
         print(json.dumps(line))

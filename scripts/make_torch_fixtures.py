@@ -36,7 +36,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-PREFIX = {"edwards25519": "ed25519", "secp256k1": "secp256k1"}
+PREFIX = {"edwards25519": "ed25519", "secp256k1": "secp256k1",
+          "bls12_381": "bls12_381"}
 
 
 def statement(args):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's batch verify or batch prove (K = 256) on a card,
-on edwards25519 (n = 64, m = 16) or secp256k1 (n = 64, m = 64).
+on edwards25519 (n = 64, m = 16), secp256k1 (n = 64, m = 64) or bls12-381
+(n = 64, m = 256).
 
 n and m are those of the curve's committed fixture. Verify (the default) runs
 the fixture batch (as chip_smoke.py does); --prove batch-proves bench.py's K
-statements (v = (7k + 3i + 2) mod 2^n, γ = 2i + k + 3) in the deterministic
-mode. Either runs 3 times warm, then once under torch.profiler, and prints,
+statements (v = (7k + 3i + 2) mod 2^n, γ = 2i + k + 3, committed by
+chip_smoke.py's host running sums) in the deterministic mode. Either runs 3 times warm, then once under torch.profiler, and prints,
 per stage range (protocol/batch.py: bpp::exponents, bpp::rlc_merge,
 bpp::variable_msm, bpp::fixed_msm, bpp::identity_check; protocol/batchprove.py
 and wip.py: bpp::bit_commitment, bpp::prove_setup, bpp::fold_round summed over
@@ -20,7 +21,7 @@ bulletproofsplus_tpu_torch/build/profile_trace.json (git-ignored) in the
 checkout.
 
 Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove]
-       [--curve edwards25519|secp256k1] [--trace PATH]
+       [--curve edwards25519|secp256k1|bls12_381] [--trace PATH]
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
 PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
                 "bpp::final_ab")
 FIXTURES = {"edwards25519": "ed25519_n64_m16_det.bin",
-            "secp256k1": "secp256k1_n64_m64_det.bin"}
+            "secp256k1": "secp256k1_n64_m64_det.bin",
+            "bls12_381": "bls12_381_n64_m256_det.bin"}
 
 
 def union_us(intervals):
@@ -93,13 +95,13 @@ def main() -> int:
         _, n, m, rows = serialize.read_fixture(f.read())
     pk = PublicKey.new(curve, n * m, dev)
     if args.prove:
+        from chip_smoke import bench_commitments
+
         stages = PROVE_STAGES
-        provers = []
-        for k in range(K):
-            pr = RangeProver()
-            for i in range(m):
-                pr.commit(pk, (7 * k + 3 * i + 2) % (1 << n), 2 * i + k + 3)
-            provers.append(pr)
+        V = bench_commitments(curve, pk, n, m, K)
+        provers = [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
+                               gamma_vec=[2 * i + k + 3 for i in range(m)],
+                               commitment_vec=list(V[k].unbind(0))) for k in range(K)]
 
         def run():
             batch_prove(curve, pk, n, provers, [DeterministicTranscript(m)] * K,

@@ -1,5 +1,6 @@
-"""Kernels K1–K5 against their plain versions, both point families, and the
-port's prover and verifier on edwards25519 and secp256k1, on an NVIDIA card.
+"""Kernels K1–K5 against their plain versions, every point family and width,
+and the port's prover and verifier on edwards25519, secp256k1 and
+bls12-381, on an NVIDIA card.
 
 Marked `cuda`: every test skips where torch sees no CUDA device (it decides
 inside the test, so every worker collects the same tests). This file
@@ -25,7 +26,8 @@ pytestmark = pytest.mark.cuda
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "bulletproofsplus_tpu_torch", "data")
 FIXTURES = {"edwards25519": os.path.join(DATA, "ed25519_n64_m16_det.bin"),
-            "secp256k1": os.path.join(DATA, "secp256k1_n64_m64_det.bin")}
+            "secp256k1": os.path.join(DATA, "secp256k1_n64_m64_det.bin"),
+            "bls12_381": os.path.join(DATA, "bls12_381_n64_m256_det.bin")}
 
 
 @pytest.fixture
@@ -78,14 +80,14 @@ def test_k2_kernel_matches_plain(dev, c, jway):
     s = c.fn.encode_plain([0] + [rnd.randrange(c.fn.p) for _ in range(G * jway - 1)], dev)
     nbits = c.fn.order_bits
     got = cc.joint_ladder_msm_grouped(c, s, P, nbits, jway)
-    want = cc.joint_ladder_plain(c, s.reshape(G, jway, 8),
-                                 P.reshape(G, jway, c.COORDS, 8), nbits)
+    want = cc.joint_ladder_plain(c, s.reshape(G, jway, c.fn.L),
+                                 P.reshape(G, jway, c.COORDS, c.fp.L), nbits)
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("W", [1, 300, 1000])
 def test_k3_kernel_matches_plain(dev, c, W):
-    P = points(c, 3 * W, W, dev).reshape(3, W, c.COORDS, 8)
+    P = points(c, 3 * W, W, dev).reshape(3, W, c.COORDS, c.fp.L)
     assert c.decode_points(cc.sum_points_grouped(c, P)) == c.decode_points(
         cc.sum_points_plain(c, P))
 

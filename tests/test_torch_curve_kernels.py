@@ -1,8 +1,8 @@
 """The port's point layer and the plain versions of kernels K2–K4 against the
 JAX package's curve ops, its Pallas kernels in interpret mode and the golden
-oracle, on both point families: edwards25519 (extended Edwards) and
-secp256k1 (projective Weierstrass, the `_wadd`/`_wdbl` bodies of the TPU
-kernels).
+oracle, on both point families: edwards25519 (extended Edwards), and
+secp256k1 and bls12-381 G1 (projective Weierstrass, the `_wadd`/`_wdbl`
+bodies of the TPU kernels, at 8 and 12 words a coordinate).
 
 Points are compared as decoded affine tuples (canonical integers); scalars
 come from a numpy seed. nbits = 16 keeps the interpret-mode ladders short,
@@ -10,7 +10,9 @@ as tests/test_pallas.py does. A Weierstrass Pallas kernel costs 50 s (K2 at
 J = 2) to over 15 minutes (K3) in interpret mode on a CPU, against 30-70 s
 for Edwards, so the Weierstrass form meets the interpret-mode K2 at J = 2
 and otherwise golden, which tests/test_pallas.py holds the Weierstrass
-Pallas kernels to on the same kind of inputs."""
+Pallas kernels to on the same kind of inputs. At bls12-381's 32 limbs the
+interpret-mode kernels cost more again, so the 12-word plain versions meet
+golden only."""
 import functools
 
 import jax.numpy as jnp
@@ -43,6 +45,11 @@ from bulletproofsplus_tpu_torch.msm.fixed import (
     precompute_tables_signed,
     table_bytes,
 )
+
+# The port's CPU tests run tiny tensors: intra-op threads buy nothing at
+# these sizes, and beside other xdist workers they oversubscribe the host (a
+# bls12-381 batch prove took 28 s alone and 895 s beside three workers).
+torch.set_num_threads(1)
 
 NBITS = 16
 
@@ -84,7 +91,7 @@ def test_point_ops_match_jax(curves):
     qts = golden_points(gc, 6, 11) + [gc.base(), None, gc.mul(gc.base(), 9)]
     P, Q = c.encode_points(pts), c.encode_points(qts)
     jP, jQ = jnp.asarray(jc.encode_points(pts)), jnp.asarray(jc.encode_points(qts))
-    assert P.shape == (9, c.COORDS, 8)
+    assert P.shape == (9, c.COORDS, c.fp.L)
     assert c.decode_points(c.add(P, Q)) == jc.decode_points(jc.add(jP, jQ))
     assert c.decode_points(c.dbl(P)) == jc.decode_points(jc.dbl(jP))
     assert c.decode_points(c.neg(P)) == jc.decode_points(jc.neg(jP))
@@ -155,10 +162,10 @@ def test_plain_kernels_match_golden(curves):
     got = cc.joint_ladder_msm_grouped(c, s, P, NBITS, 4)
     assert c.decode_points(got) == [golden_msm(gc, ks[:4], pts[:4]),
                                     golden_msm(gc, ks[4:], pts[4:])]
-    sums = cc.sum_points_grouped(c, P.reshape(2, 4, c.COORDS, 8))
+    sums = cc.sum_points_grouped(c, P.reshape(2, 4, c.COORDS, c.fp.L))
     assert c.decode_points(sums) == [golden_msm(gc, [1] * 4, pts[:4]),
                                      golden_msm(gc, [1] * 4, pts[4:])]
-    assert c.decode_points(tree_sum(c, P.reshape(2, 4, c.COORDS, 8)[:, :0])) == [None] * 2
+    assert c.decode_points(tree_sum(c, P.reshape(2, 4, c.COORDS, c.fp.L)[:, :0])) == [None] * 2
     for build in (precompute_tables, precompute_tables_signed):
         table = build(c, P[:6], NBITS)
         got = fixed_msm(c, s[:6], table, NBITS)
@@ -183,11 +190,13 @@ def test_msm_and_scalar_mul_match_golden(curves):
 
 def test_fixed_base_mode_budget(curves):
     """268 MB at edwards25519's 2mn = 2048; 805 MB at secp256k1's 2mn =
-    8192 (96-byte points), both unsigned under the 7 GiB budget."""
+    8192 (96-byte points); 4.83 GB at bls12-381's 2mn = 32768 (144-byte
+    points); all unsigned under the 7 GiB budget."""
     c = curves[0]
-    N, point = {"edwards25519": (2048, 128), "secp256k1": (8192, 96)}[c.name]
+    N, point = {"edwards25519": (2048, 128), "secp256k1": (8192, 96),
+                "bls12_381": (32768, 144)}[c.name]
     assert table_bytes(c, N) == 16 * 64 * N * point
-    nwin = c.fn.signed_window_count(c.fn.order_bits)     # 64 for 253 bits, 65 for 256
+    nwin = c.fn.signed_window_count(c.fn.order_bits)     # 64 for 253 and 255 bits, 65 for 256
     assert table_bytes(c, N, signed=True) == 8 * nwin * N * point
     assert fixed_base_mode(c, N) == "unsigned"
     assert fixed_base_mode(c, N, max_bytes=table_bytes(c, N) - 1) == "signed"
@@ -219,3 +228,9 @@ def test_kernel_entry_points_per_family():
     wei = roofline.launch_work("bpp_joint_ladder_weierstrass", args)
     assert ed == (10 * 8 * 160 + 10 * 128, 10 * (8 * 14 * 9 + 64 * (4 * 8 + 8 * 9)))
     assert wei == (10 * 8 * 128 + 10 * 96, 10 * (8 * 14 * 14 + 64 * (4 * 9 + 8 * 14)))
+    wei12 = roofline.launch_work("bpp_joint_ladder_weierstrass12", args)
+    assert wei12 == (10 * 8 * 176 + 10 * 144, wei[1])
+    assert curve_ops("bls12_381").FAMILY == "weierstrass12"
+    assert roofline.launch_words("bpp_joint_ladder_weierstrass12", args) == 12
+    assert roofline.launch_work("bpp_mont_mul", (0, 0, 0, 100, 12, None)) == (100 * 144, 100)
+    assert roofline.fe_mul_mads(8) == 264 and roofline.fe_mul_mads(12) == 588

@@ -1,5 +1,6 @@
 """The port's field layer (bulletproofsplus_tpu_torch.fields) against the JAX
-package's FieldOps and its Pallas Montgomery kernel (interpret mode).
+package's FieldOps and its Pallas Montgomery kernel (interpret mode), on the
+fields of every ported curve: 8 words a value, and 12 for bls12-381's Fq.
 
 Inputs come from a numpy seed; both sides get the same integers and the
 comparison is exact, on canonical integers (the two packages use different
@@ -27,6 +28,11 @@ from bulletproofsplus_tpu_torch.fields.mont_mul import (
 )
 from bulletproofsplus_tpu_torch.fields.spec import int_to_words
 
+# The port's CPU tests run tiny tensors: intra-op threads buy nothing at
+# these sizes, and beside other xdist workers they oversubscribe the host (a
+# bls12-381 batch prove took 28 s alone and 895 s beside three workers).
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ["fp", "fn"]
 
@@ -38,7 +44,8 @@ def rand_ints(seed, count, p):
 
 def upper_half(seed, count, p):
     """Random values in [p/2, p): their sums pass p, and for a modulus above
-    2^255 (secp256k1) also 2^256."""
+    2^255 (secp256k1) also 2^256; bls12-381's Fq has 3 bits of headroom in
+    2^384, so its sums never pass it."""
     return [p // 2 + x for x in rand_ints(seed, count, p - p // 2)]
 
 
@@ -51,10 +58,11 @@ def pair(which, curve="edwards25519"):
 @pytest.mark.parametrize("which", FIELDS)
 def test_ring_ops_match_jax(which, curve):
     """Against the JAX FieldOps and Python ints, on p − 1, p − 2,
-    2^256 − 1 − p and random pairs from [p/2, p)."""
+    2^(32L) − 1 − p (2^384 − 1 − p for bls12-381's Fq) and random pairs from
+    [p/2, p)."""
     f, jf = pair(which, curve)
     p = f.p
-    edge = [p - 1, p - 2, ((1 << 256) - 1 - p) % p]
+    edge = [p - 1, p - 2, ((1 << (32 * f.L)) - 1 - p) % p]
     xs = rand_ints(1, 12, p) + [0, 1, p - 1, p - 1] + edge * 3 + upper_half(3, 24, p)
     ys = rand_ints(2, 12, p) + [p - 1, 0, p - 1, 1] + edge + edge[::-1] + [1, 2, 3] \
         + upper_half(4, 24, p)
@@ -77,7 +85,7 @@ def test_batch_invert_and_powers_match_jax(which, curve):
     f, jf = pair(which, curve)
     p = f.p
     xs = rand_ints(3, 10, p)
-    a = f.encode(xs).reshape(2, 5, 8)
+    a = f.encode(xs).reshape(2, 5, f.L)
     ja = jnp.asarray(jf.encode(xs)).reshape(2, 5, -1)
     allinv, invs = f.batch_invert(a, axis=1)
     jall, jinvs = jf.batch_invert(ja, axis=1)
@@ -91,10 +99,10 @@ def test_batch_invert_and_powers_match_jax(which, curve):
 
 
 @pytest.mark.parametrize("curve,nbits", [("edwards25519", 16), ("edwards25519", 253),
-                                         ("secp256k1", 256)])
+                                         ("secp256k1", 256), ("bls12_381", 255)])
 def test_scalar_digits_match_jax(curve, nbits):
-    """253 and 256 bits are the two curves' order widths: 64 windows, and 64
-    or 65 signed windows."""
+    """253, 256 and 255 bits are the curves' order widths: 64 windows, and
+    64 or 65 signed windows."""
     f, jf = pair("fn", curve)
     ks = rand_ints(4, 8, 1 << nbits) + [0, (1 << nbits) - 1]
     s, js = f.encode_plain(ks), jnp.asarray(jf.encode_plain(ks))
@@ -109,10 +117,12 @@ def test_scalar_digits_match_jax(curve, nbits):
 
 @pytest.mark.parametrize("curve,which,name", [
     ("edwards25519", "fp", "ed25519_fp"), ("edwards25519", "fn", "ed25519_fl"),
-    ("secp256k1", "fp", "secp256k1_fp"), ("secp256k1", "fn", "secp256k1_fn")])
+    ("secp256k1", "fp", "secp256k1_fp"), ("secp256k1", "fn", "secp256k1_fn"),
+    ("bls12_381", "fp", "bls12_381_fq"), ("bls12_381", "fn", "bls12_381_fr")])
 def test_k1_plain_matches_pallas_interpret(curve, which, name):
     """K1's plain version against the TPU kernel it replaces, run in Pallas
-    interpret mode on the 12-bit layout (as tests/test_pallas.py does)."""
+    interpret mode on the 12-bit layout (as tests/test_pallas.py does); at
+    bls12-381's Fq the port multiplies 12 words, the TPU 32 limbs."""
     ops = field_ops(ALL_SPECS[name])
     f = getattr(curve_ops(curve), which)
     p = ops.p
@@ -128,37 +138,42 @@ def test_k1_plain_matches_pallas_interpret(curve, which, name):
     assert mont_mul.launches == before  # CPU tensors never launch the kernel
 
 
-def carry_patterns(p):
-    """256-bit values whose word-wise sums and differences carry or borrow
-    through long runs: all-ones and all-zero words, single-word holes,
-    p − 1, p and 2^256 − 1, alternating words, and a few random values."""
-    top = (1 << 256) - 1
-    out = [0, 1, 2, top, top - 1, p - 1, p, p + 1, 1 << 255, (1 << 255) - 1,
-           int("FFFFFFFF00000000" * 4, 16), int("00000000FFFFFFFF" * 4, 16)]
-    out += [top ^ (0xFFFFFFFF << (32 * i)) for i in range(8)]    # one zero word
-    out += [1 << (32 * i) for i in range(8)]                      # one set word
-    return out + rand_ints(11, 4, 1 << 256)
+def carry_patterns(p, words=8):
+    """Values of `words` 32-bit words whose word-wise sums and differences
+    carry or borrow through long runs: all-ones and all-zero words,
+    single-word holes, p − 1, p and 2^(32·words) − 1, alternating words, and
+    a few random values."""
+    bits = 32 * words
+    top = (1 << bits) - 1
+    out = [0, 1, 2, top, top - 1, p - 1, p, p + 1, 1 << (bits - 1), (1 << (bits - 1)) - 1,
+           int("FFFFFFFF00000000" * (words // 2), 16), int("00000000FFFFFFFF" * (words // 2), 16)]
+    out += [top ^ (0xFFFFFFFF << (32 * i)) for i in range(words)]    # one zero word
+    out += [1 << (32 * i) for i in range(words)]                      # one set word
+    return out + rand_ints(11, 4, 1 << bits)
 
 
 @pytest.mark.parametrize("curve", CURVE_NAMES)
 @pytest.mark.parametrize("which", FIELDS)
 def test_carry32_on_carry_runs(which, curve):
     """Every pair of patterns, summed and subtracted limb by limb, against
-    Python ints mod 2^256 with the carry (1) or borrow (−1) out."""
-    vals = carry_patterns(pair(which, curve)[0].p)
+    Python ints mod 2^(32L) with the carry (1) or borrow (−1) out, at the
+    field's width L."""
+    f = pair(which, curve)[0]
+    bits = 32 * f.L
+    vals = carry_patterns(f.p, f.L)
     xs = [x for x in vals for _ in vals]
     ys = [y for _ in vals for y in vals]
-    a = torch.tensor([int_to_words(x) for x in xs], dtype=torch.int64)
-    b = torch.tensor([int_to_words(y) for y in ys], dtype=torch.int64)
+    a = torch.tensor([int_to_words(x, f.L) for x in xs], dtype=torch.int64)
+    b = torch.tensor([int_to_words(y, f.L) for y in ys], dtype=torch.int64)
 
     def ints(limbs):
         return [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in limbs.tolist()]
 
     s, c = carry32(a + b)
-    assert ints(s) == [(x + y) % (1 << 256) for x, y in zip(xs, ys)]
-    assert c.tolist() == [(x + y) >> 256 for x, y in zip(xs, ys)]
+    assert ints(s) == [(x + y) % (1 << bits) for x, y in zip(xs, ys)]
+    assert c.tolist() == [(x + y) >> bits for x, y in zip(xs, ys)]
     d, bo = carry32(a - b, borrow=True)
-    assert ints(d) == [(x - y) % (1 << 256) for x, y in zip(xs, ys)]
+    assert ints(d) == [(x - y) % (1 << bits) for x, y in zip(xs, ys)]
     assert bo.tolist() == [-1 if x < y else 0 for x, y in zip(xs, ys)]
 
 
@@ -187,18 +202,19 @@ def test_norm16_on_carry_runs(bits):
 @pytest.mark.parametrize("which", FIELDS)
 def test_mont_mul_plain_on_carry_runs(which, curve):
     """K1's plain version and the plain add on the carry patterns reduced
-    mod p (p − 1, p − 2, 2^256 − 1 − p, long one and zero runs) and values
-    from [p/2, p), against a·b·2^−256 mod p and a + b mod p. Above 2^255
-    (secp256k1) T + m·p passes 2^512 and a + b passes 2^256."""
+    mod p (p − 1, p − 2, 2^(32L) − 1 − p, long one and zero runs) and values
+    from [p/2, p), against a·b·2^−(32L) mod p and a + b mod p, at the field's
+    width L. Above 2^255 (secp256k1) T + m·p passes 2^512 and a + b passes
+    2^256."""
     f = pair(which, curve)[0]
-    p = f.p
-    vals = sorted({v % p for v in carry_patterns(p)}
-                  | {p - 1, p - 2, (1 << 256) % p, ((1 << 256) - 1 - p) % p}
+    p, R = f.p, 1 << (32 * f.L)
+    vals = sorted({v % p for v in carry_patterns(p, f.L)}
+                  | {p - 1, p - 2, R % p, (R - 1 - p) % p}
                   | set(upper_half(13, 8, p)))
     xs = [x for x in vals for _ in vals]
     ys = [y for _ in vals for y in vals]
     a, b = f.encode_plain(xs), f.encode_plain(ys)
-    rinv = pow(1 << 256, -1, p)
+    rinv = pow(R, -1, p)
     assert f.decode_plain(mont_mul_plain(a, b, f.spec)) == [
         x * y * rinv % p for x, y in zip(xs, ys)]
     assert f.decode_plain(f.plain.add(a, b)) == [(x + y) % p for x, y in zip(xs, ys)]
@@ -234,15 +250,32 @@ def test_convert_field_from_jax(montgomery):
     assert f.decode(convert.field_from_jax(twelve.encode(xs), f, device="cpu")) == xs
 
 
+def test_convert_bls12_381_field_from_jax():
+    """bls12-381 values of the JAX package (Fq: 32 limbs of 12 bits, R =
+    2^384, or the CPU backend's layout; Fr: 22 limbs of 12 bits) carried to
+    the port's 12 and 8 words, Montgomery and plain."""
+    for which, name in (("fp", "bls12_381_fq"), ("fn", "bls12_381_fr")):
+        f, jf = pair(which, "bls12_381")
+        xs = rand_ints(14, 5, f.p) + [0, f.p - 1]
+        got = convert.field_from_jax(np.asarray(jf.encode(xs)), f, device="cpu")
+        assert got.shape == (7, f.L) and f.decode(got) == xs
+        plain = convert.field_from_jax(np.asarray(jf.encode_plain(xs)), f, False, device="cpu")
+        assert f.decode_plain(plain) == xs
+        twelve = field_ops(ALL_SPECS[name])
+        assert f.decode(convert.field_from_jax(twelve.encode(xs), f, device="cpu")) == xs
+    assert curve_ops("bls12_381").fp.L == 12 and curve_ops("bls12_381").fn.L == 8
+
+
 def test_port_imports_without_jax():
     """The port must never import jax: import it with jax blocked."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['bulletproofsplus_tpu'] = None; "
             "import bulletproofsplus_tpu_torch as bt; "
             "import bulletproofsplus_tpu_torch.convert, bulletproofsplus_tpu_torch.kernels; "
-            "print(bt.curve_ops().name, bt.curve_ops('secp256k1').COORDS)")
+            "print(bt.curve_ops().name, bt.curve_ops('secp256k1').COORDS, "
+            "bt.curve_ops('bls12_381').fp.L)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "edwards25519 3"
+    assert res.stdout.strip() == "edwards25519 3 12"

@@ -1,5 +1,5 @@
 """The port's prover slice against the JAX package and the golden oracle, on
-edwards25519 and secp256k1.
+edwards25519, secp256k1 and bls12-381 G1.
 
 Statements sit at n = 8, m ∈ {1, 2}, K = 2, with witnesses from a numpy
 seed. The port's K5 plain version must equal the JAX Pallas ladder in
@@ -11,8 +11,10 @@ tampered. Every comparison is exact: canonical integers or wire bytes.
 
 JAX `prove` runs eagerly on the CPU and takes about a minute for one
 m = 1 statement (more for m = 2), so it is compared once, on the first
-statement of the m = 1 batch; golden, whose bytes the JAX package's own
-tests hold equal to JAX's, is compared on every statement. Each batch is
+statement of the m = 1 batch, on edwards25519 and secp256k1 (at bls12-381's
+32 limbs it runs for many minutes); golden, whose bytes the JAX package's
+own tests hold equal to JAX's, is compared on every statement of every
+curve. Each batch is
 proven once per module. `prove` is the K = 1 batch: here its delegation is
 checked, and tests/test_torch_cuda.py proves with it on the card."""
 import dataclasses
@@ -58,9 +60,17 @@ from bulletproofsplus_tpu_torch.protocol.range import (
     prove_setup_single_batched,
 )
 
+# The port's CPU tests run tiny tensors: intra-op threads buy nothing at
+# these sizes, and beside other xdist workers they oversubscribe the host (a
+# bls12-381 batch prove took 28 s alone and 895 s beside three workers).
+torch.set_num_threads(1)
+
 N = 8
 K = 2
 CPU = "cpu"
+# The JAX bit-commitment program (3.5 minutes) and JAX `prove` (longer) run
+# too long at bls12-381's 32 limbs on a CPU: that curve meets golden there.
+JAX_PROVE_CURVES = ("edwards25519", "secp256k1")
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "bulletproofsplus_tpu_torch", "data", "ed25519_n64_m16_det.bin")
 
@@ -165,7 +175,7 @@ def test_k5_plain_matches_pallas_ladder():
 
 def test_k5_plain_matches_golden_full_width(env):
     """Scalars of the group order's width (the bit commitment's: 253 bits on
-    edwards25519, 256 on secp256k1) on a few lanes."""
+    edwards25519, 256 on secp256k1, 255 on bls12-381) on a few lanes."""
     c, _, gc = env
     rng = np.random.default_rng(6)
     ks = [int.from_bytes(rng.bytes(32), "little") % gc.fn.p for _ in range(3)]
@@ -177,6 +187,7 @@ def test_k5_plain_matches_golden_full_width(env):
     assert c.decode_points(got) == [gc.mul(p, k) for k, p in zip(ks, pts)]
 
 
+@pytest.mark.parametrize("env", JAX_PROVE_CURVES, indirect=True)
 @pytest.mark.parametrize("m", [1, 2])
 def test_bit_commitment_matches_jax(env, m):
     c, jc, gc = env
@@ -192,6 +203,28 @@ def test_bit_commitment_matches_jax(env, m):
     want = _bit_commitment_batch_prog(jc)(jnp.asarray(jc.fn.encode_plain(alphas)),
                                           jnp.asarray(bits), jpk.G_vec, jpk.H_vec, jpk.h)
     assert c.decode_points(got) == jc.decode_points(want)
+
+
+def test_bls12_381_bit_commitment_matches_golden():
+    """The bit commitment A_k = h·α_k + Σ_i (bit ? G_i : −H_i) at bls12-381
+    (K5 at 255 bits, then K3 over 12-word points) against golden."""
+    name, m = "bls12_381", 2
+    c, gc = bt.curve_ops(name), CURVES[name]
+    rows = witnesses(m, 12, gc.fn.p)
+    bits = np.stack([bit_decompose([v for v, _ in row], N, m) for row in rows])
+    alphas = [int.from_bytes(np.random.default_rng(k).bytes(32), "little") % gc.fn.p
+              for k in range(K)]
+    pk = bt.PublicKey.new(c, N * m, CPU)
+    got = bit_commitment_batched(c, c.fn.encode_plain(alphas), torch.from_numpy(bits),
+                                 pk.G_vec, pk.H_vec, pk.h)
+    gpk = GoldenPublicKey.new(gc, N * m)
+    want = []
+    for alpha, b in zip(alphas, bits):
+        acc = gc.mul(gpk.h, alpha)
+        for i, bit in enumerate(b):
+            acc = gc.add(acc, gpk.G_vec[i] if bit else gc.neg(gpk.H_vec[i]))
+        want.append(acc)
+    assert c.decode_points(got) == want
 
 
 @pytest.mark.parametrize("m", [1, 2])
@@ -247,6 +280,7 @@ def test_batch_verify_accepts_proven_batch(env, proven):
         bt.batch_verify(c, pk, N, bad, V, trs)
 
 
+@pytest.mark.parametrize("env", JAX_PROVE_CURVES, indirect=True)
 def test_prove_matches_jax_and_golden(env, proven_for, monkeypatch):
     """JAX `prove` of the m = 1 batch's first statement: port bytes == JAX
     bytes == golden bytes, and the port's single `verify` accepts the port's
