@@ -10,25 +10,38 @@
 // 4-bit digits come straight from the plain-form scalar words, SW = 8 of
 // them a scalar whatever the width of a coordinate. What bounds it on
 // Hopper: 8-9 (Edwards) or 9-14 (Weierstrass) Montgomery products per point
-// op, ~900-1,000 point ops per group at J = 8, all dependent. At the
-// verifier's few thousand groups it is bound by per-thread latency and by
-// the local-memory table loads; at the prover's 10^5-10^6 groups the card's
-// threads are full and it comes within a few times of its integer-multiply
-// bound. A later PR spreads a group over several threads; this one is the
-// simple, exact baseline.
+// op, ~900-1,000 point ops per group at J = 8, all dependent. Each product
+// (field.cuh::fe_mul) is two PTX carry chains a row, which alone run at
+// 93-96 % of the card's integer-multiply rate (scripts/bench_torch_fe_mul.py);
+// the kernel keeps 120 (Edwards), 186 (8-word) and 244-246 (12-word
+// Weierstrass) registers a thread, so 8-17 warps an SM hide that chain. At
+// the prover's 10^5-10^6 groups it runs within about 1.5-2× of its
+// integer-multiply bound; at the verifier's few thousand groups it is bound
+// by per-thread latency on a partial wave. A later PR spreads a group over
+// several threads there.
 #include <cuda_runtime.h>
 
 #include "family.cuh"
 
 using namespace bpp;
 
+// Threads a block where the groups fill the card many times over (the
+// prover's 10^5-10^6), and below SMALL_GRID groups (the verifier's few
+// thousand) blocks of 32 threads, which spread the partial wave over more
+// SMs. PERF.md has the launch shapes that were tried. The minimum of 1
+// block an SM in __launch_bounds__ is not the default: without it ptxas
+// holds the registers down for occupancy, and the prover's shapes ran
+// slower (PERF.md).
+constexpr int THREADS = 128;
+constexpr long long SMALL_GRID = 32768;
+
 namespace {
 
 template <class P, int J>
-__global__ void joint_ladder_kernel(const uint32_t* __restrict__ pts,
-                                    const uint32_t* __restrict__ scal,
-                                    uint32_t* __restrict__ out, long long G, int nwin,
-                                    typename P::Consts K) {
+__global__ void __launch_bounds__(THREADS, 1)
+    joint_ladder_kernel(const uint32_t* __restrict__ pts, const uint32_t* __restrict__ scal,
+                        uint32_t* __restrict__ out, long long G, int nwin,
+                        typename P::Consts K) {
   constexpr int W = P::NC * P::NL;
   long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
@@ -60,7 +73,7 @@ __global__ void joint_ladder_kernel(const uint32_t* __restrict__ pts,
 template <class P>
 int launch(const void* pts, const void* scal, void* out, long long G, int jway, int nwin,
            const typename P::Consts& K, cudaStream_t stream) {
-  const int threads = 32;
+  const int threads = G < SMALL_GRID ? 32 : THREADS;
   const unsigned blocks = (unsigned)((G + threads - 1) / threads);
   const uint32_t* p = (const uint32_t*)pts;
   const uint32_t* s = (const uint32_t*)scal;

@@ -15,9 +15,10 @@ scalars are plain-form (..., S) with S = curve.fn.L = 8 words on every curve,
 so the kernels read coordinates and scalars at two widths.
 
 - K2 `joint_ladder_msm_grouped` ← `_joint_ladder_call` (pallas_curve.py:606,
-  pallas_call :718). Bound on Hopper by per-thread latency: one thread runs
-  a whole group's ~900 dependent point ops (~1,000 at 256-bit scalars);
-  see csrc/joint_ladder.cu.
+  pallas_call :718). One thread runs a whole group's ~900 dependent point
+  ops (~1,000 at 256-bit scalars): within 1.5-2× of the integer-multiply
+  bound at the prover's 10^5-10^6 groups, latency-bound at the verifier's
+  few thousand; see csrc/joint_ladder.cu.
 - K3 `sum_points_grouped` ← `_sum_points_call` (:475, pallas_call :553).
   One block per group, a strided pass and a shared-memory tree in place of
   the TPU's sequential revisiting of one output window.

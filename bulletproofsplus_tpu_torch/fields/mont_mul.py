@@ -6,8 +6,8 @@ of 12-bit limbs, halving passes, a separated REDC and one carry resolve, laid
 out limb-major so the batch fills TPU lanes.
 
 On Hopper (csrc/mont_mul.cu) one thread owns one element and runs word-serial
-CIOS over L × 32-bit words with 32×32→64 multiplies (`fe_mul` in
-csrc/field.cuh): L² + L² multiply-adds, all in registers, at L = 8 (R =
+CIOS over L × 32-bit words with 32×32→64 multiplies in PTX carry chains
+(`fe_mul` in csrc/field.cuh): L² + L² multiply-adds, all in registers, at L = 8 (R =
 2^256) or L = 12 (bls12-381's Fq, R = 2^384), the field spec's width, one
 template instance each. What bounds it: each element moves 12·L bytes (two
 operands, one result) for 2·L² wide multiplies, so at the exponent stage's

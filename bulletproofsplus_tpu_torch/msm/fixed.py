@@ -16,8 +16,13 @@ points the unsigned table holds 16·64·2048 points of 128 bytes: 268 MB; at
 2mn = 8192 secp256k1 points 16·64·8192 points of 96 bytes: 805 MB; at
 2mn = 32768 bls12-381 points 16·64·32768 points of 144 bytes: 4.83 GB, still
 under the 7 GiB budget, so every cell's verifier takes the unsigned table.
+The budget is BPP_FIXED_BASE_MAX_BYTES, as in the JAX package; above it no
+table is built and the generator lanes run on the joint ladder
+(protocol/batch.py::verify_stacked).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -42,12 +47,16 @@ def table_bytes(curve, n_points: int, nbits: int | None = None,
     return nent * nwin * n_points * point_bytes(curve)
 
 
-def fixed_base_mode(curve, n_points: int, max_bytes: int = DEFAULT_MAX_BYTES):
+def fixed_base_mode(curve, n_points: int, max_bytes: int | None = None):
     """"unsigned" when its table fits max_bytes (one select fewer per
-    lookup), else "signed" when that fits, else None (no table fits; the
-    JAX package then runs the generator lanes on the ladder, which the
-    port does not: signed tables fit up to 2mn ≈ 110,000 on edwards25519,
-    ≈ 146,000 on secp256k1 and ≈ 102,000 on bls12-381)."""
+    lookup); else "signed" when that fits; else None: no table fits and
+    verify runs the generator lanes on the ladder, as the JAX package does.
+    max_bytes defaults to BPP_FIXED_BASE_MAX_BYTES, else 7 GiB
+    (bulletproofsplus_tpu/msm/fixed.py::_budget). At 7 GiB signed tables
+    fit up to 2mn ≈ 110,000 on edwards25519, ≈ 146,000 on secp256k1 and
+    ≈ 102,000 on bls12-381."""
+    if max_bytes is None:
+        max_bytes = int(os.environ.get("BPP_FIXED_BASE_MAX_BYTES", DEFAULT_MAX_BYTES))
     if table_bytes(curve, n_points) <= max_bytes:
         return "unsigned"
     if table_bytes(curve, n_points, signed=True) <= max_bytes:

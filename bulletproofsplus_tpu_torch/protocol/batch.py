@@ -8,6 +8,9 @@ identity implies every term's, with overwhelming probability. The proofs
 share the pk generators, so their G/H/g/h exponents merge by field adds:
 the 2mn generator lanes run on fixed-base tables (K4 + K3) and only the
 K·(2·log2(mn)+m+3)+2 proof-specific lanes run the joint ladder (K2 + K3).
+When no table fits BPP_FIXED_BASE_MAX_BYTES (PublicKey.fixed_tables gives None),
+the generator lanes join the ladder's lanes, as in the JAX package
+(batch.py:187-192).
 """
 from __future__ import annotations
 
@@ -58,12 +61,17 @@ def verify_stacked(curve, pk, n: int, m: int, batch: ProofBatch, V_all,
         uniq_p = torch.cat([h[:, None] for h in head]
                            + [batch.L_vec, batch.R_vec, V_all], dim=1)
         var_p = torch.cat([uniq_p.reshape(-1, *pk.g.shape), pk.g[None], pk.h[None]])
+        tables = pk.fixed_tables(mn)
+        if tables is None:   # no table fits the budget: the generators join the ladder
+            var_s = torch.cat([var_s, gen_s])
+            var_p = torch.cat([var_p, pk.G_vec[:mn], pk.H_vec[:mn]])
     with record_function("bpp::variable_msm"):
-        var = msm(curve, var_s, var_p)
-    with record_function("bpp::fixed_msm"):
-        gen = fixed_msm(curve, gen_s, pk.fixed_tables(mn))
+        total = msm(curve, var_s, var_p)
+    if tables is not None:
+        with record_function("bpp::fixed_msm"):
+            total = curve.add(total, fixed_msm(curve, gen_s, tables))
     with record_function("bpp::identity_check"):
-        return bool(curve.is_identity(curve.add(var, gen)))
+        return bool(curve.is_identity(total))
 
 
 def batch_verify(curve, pk, n: int, proofs, commitment_lists,

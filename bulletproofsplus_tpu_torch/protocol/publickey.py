@@ -79,7 +79,8 @@ class PublicKey:
     def fixed_tables(self, mn: int):
         """Window tables over [G_vec[:mn] ‖ H_vec[:mn]], built on first use:
         unsigned when it fits the budget of msm.fixed.fixed_base_mode, else
-        the half-size signed table."""
+        the half-size signed table; None when neither fits (verify then runs
+        the generator lanes on the ladder)."""
         t = self._fb_tables.get(mn)
         if t is None:
             from ..msm.fixed import (
@@ -88,8 +89,10 @@ class PublicKey:
                 precompute_tables_signed,
             )
 
-            signed = fixed_base_mode(self.curve, 2 * mn) != "unsigned"
-            build = precompute_tables_signed if signed else precompute_tables
+            mode = fixed_base_mode(self.curve, 2 * mn)
+            if mode is None:
+                return None
+            build = precompute_tables if mode == "unsigned" else precompute_tables_signed
             t = build(self.curve, torch.cat([self.G_vec[:mn], self.H_vec[:mn]]))
             self._fb_tables[mn] = t
         return t

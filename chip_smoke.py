@@ -8,8 +8,9 @@ n = 64, m = 64 and bls12-381 G1 at n = 64, m = 256 from their BPPF2
 fixtures; K = 256 for all three), any failure exiting nonzero before the
 final line:
   2. hold K1 (Montgomery multiply) against its plain PyTorch version at both
-     of the curve's moduli on 262,144 elements that include p − 1 and values
-     in [p/2, p) (bls12-381's Fq at 12 words a value), and K2 (joint ladder,
+     of the curve's moduli on 262,144 elements that include p − 1, values
+     in [p/2, p) and carry runs (words of all ones and of zeros; bls12-381's
+     Fq at 12 words a value), and K2 (joint ladder,
      J = 8) and K3 (grouped point sum) at the shapes of the verify batch
      below (edwards25519: 1,249 groups; secp256k1: 2,913; bls12-381: 9,185,
      K2 compared on its first 4,096), and time both;
@@ -31,7 +32,9 @@ final line:
      zero-scalar identity padding included), K3 over 2K × (mn + 4)/4 points
      (L/R's sums) and K × (mn + 1) points (the bit commitments), on the
      key's generators with seeded random scalars and bits; K2 is timed at
-     its full shape and compared on its first 16,384 groups;
+     its full shape and compared on its first 16,384 groups; and K2 at J = 2
+     and 4 on 4,096 groups whose coordinates and scalars are carry runs
+     (words of all ones and of zeros);
   8. rebuild the fixture's witnesses, commit them (each commitment must
      equal the fixture's bytes) and batch-prove them on the card: every
      proof must equal the committed golden-made bytes;
@@ -72,6 +75,7 @@ PLAIN_PREFIX = 16_384   # groups on which K2 at the prover's shapes meets its pl
 # groups on which K2 at the verify shape meets its plain version, where that
 # is not all of them (the plain ladder at 12 words and 9,185 groups)
 VERIFY_PREFIX = {"bls12_381": 4_096}
+CARRY_GROUPS = 4_096    # groups of K2's carry-run holds at J = 2 and 4
 DEVICE = "cuda:0"
 SOURCES = {"K1": ("mont_mul", "mont_mul.cu", "fields/pallas_ops.py:369"),
            "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
@@ -209,14 +213,58 @@ def bench_commitments(curve, pk, n: int, m: int, K: int | None = None):
     return V.reshape(K, m, *V.shape[1:])
 
 
+def carry_runs(p: int, words: int, count: int, rnd) -> list:
+    """count values below p of `words` words whose sums, differences and
+    products carry or borrow through long runs: p − 1, p − 2, 0, 1, then in
+    turn words of all ones, all zeros or random under a top word below p's;
+    values in [p/2, p); and p − 1 less a random number of up to all bits."""
+    low = 32 * (words - 1)
+    top = p >> low
+    out = [p - 1, p - 2, 0, 1][:count]
+    while len(out) < count:
+        kind = len(out) % 3
+        if kind == 0:
+            ws = [rnd.choice((0, 0xFFFFFFFF, rnd.getrandbits(32))) for _ in range(words - 1)]
+            v = sum(w << (32 * i) for i, w in enumerate(ws)) + (rnd.randrange(top) << low)
+        elif kind == 1:
+            v = rnd.randrange(p // 2, p)
+        else:
+            v = p - 1 - rnd.getrandbits(rnd.randrange(1, 32 * words))
+        out.append(v % p)
+    return out
+
+
+def k2_shapes(n: int, m: int) -> list:
+    """(J, groups) of K2's launches in a cell of K_BATCH proofs: the verify
+    MSM's variable lanes, then round 0 of the prover: the folds (J = 2 over
+    K·mn groups) and L and R (J = 4 over 2K rows of mn + 2 lanes padded to
+    a multiple of 4)."""
+    from bulletproofsplus_tpu_torch.msm.engine import joint_width
+
+    mn = n * m
+    lanes = K_BATCH * (3 + 2 * (mn.bit_length() - 1) + m) + 2
+    J = joint_width(lanes)
+    return [(J, -(-lanes // J)), (2, K_BATCH * mn), (4, 2 * K_BATCH * -(-(mn + 2) // 4))]
+
+
 def field_operands(f, count: int, rnd, device):
-    """count operands of f: p − 1, p − 2, then half uniform, half from
-    [p/2, p) (sums past p, and past 2^256 for a modulus above 2^255)."""
+    """count operands of f: p − 1, p − 2, then a third uniform, a third from
+    [p/2, p) (sums past p, and past 2^256 for a modulus above 2^255) and a
+    third from carry runs."""
     p = f.p
-    half = (count - 2) // 2
-    vals = ([p - 1, p - 2] + [rnd.randrange(p) for _ in range(half)]
-            + [rnd.randrange(p // 2, p) for _ in range(count - 2 - half)])
+    third = (count - 2) // 3
+    vals = ([p - 1, p - 2] + [rnd.randrange(p) for _ in range(third)]
+            + [rnd.randrange(p // 2, p) for _ in range(third)]
+            + carry_runs(p, f.L, count - 2 - 2 * third, rnd))
     return f.encode(vals, device)
+
+
+def carry_run_scalars(count: int, gen, device):
+    """count plain-form scalars whose words are all ones, all zeros or
+    random (digits 15 and 0 in long runs)."""
+    kind = torch.randint(0, 3, (count, 8), generator=gen, device=device)
+    s = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32, generator=gen, device=device)
+    return torch.where(kind == 0, 0, torch.where(kind == 1, -1, s)).to(torch.int32)
 
 
 def smoke_curve(name: str, seed: int, held: dict, counted):
@@ -237,7 +285,6 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     )
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
     from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
-    from bulletproofsplus_tpu_torch.msm.engine import joint_width
     from bulletproofsplus_tpu_torch.msm.fixed import precompute_tables_signed
     from bulletproofsplus_tpu_torch.protocol.range import (
         replay_batch,
@@ -256,10 +303,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     if fix_curve != name:
         raise AssertionError(f"{FIXTURES[name]} holds {fix_curve} statements")
     mn = n * m
-    logn = mn.bit_length() - 1
-    var_lanes = K_BATCH * (3 + 2 * logn + m) + 2
-    J = joint_width(var_lanes)
-    G = -(-var_lanes // J)
+    (J, G), fold_shape, lr_shape = k2_shapes(n, m)
     log(f"== {name}: n = {n}, m = {m}, K = {K_BATCH}, {len(rows)} fixture statements")
 
     # -- 2. K1, K2, K3 against their plain versions -------------------------
@@ -383,6 +427,8 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     fold_s = random_scalars(fold_p.shape[0], gen, dev)
     fold_s[:2] = 0
     Gf = fold_p.shape[0] // 2
+    if (2, Gf) != fold_shape:
+        raise AssertionError(f"round 0's folds run {Gf} groups, not k2_shapes' {fold_shape}")
     pre = min(PLAIN_PREFIX, Gf)
     hold(held, (name, "K2", f"J=2, {Gf} groups"),
          lambda: cc.joint_ladder_msm_grouped(curve, fold_s, fold_p, nbits, 2),
@@ -403,6 +449,8 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     lr_s = random_scalars(lr_p.shape[0], gen, dev)
     lr_s.view(K_BATCH, 2, Wp, S)[:, :, W:] = 0
     Gl = lr_p.shape[0] // 4
+    if (4, Gl) != lr_shape:
+        raise AssertionError(f"round 0's L and R run {Gl} groups, not k2_shapes' {lr_shape}")
     pre = min(PLAIN_PREFIX, Gl)
     lr = hold(held, (name, "K2", f"J=4, {Gl} groups"),
               lambda: cc.joint_ladder_msm_grouped(curve, lr_s, lr_p, nbits, 4),
@@ -410,6 +458,20 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
                                             lr_p[:4 * pre].reshape(pre, 4, C, L), nbits),
               coord_err(fp), 3, prefix=pre)
     lr = lr.reshape(2 * K_BATCH, Wp // 4, C, L)
+
+    # K2 on carry runs at the prover's widths: coordinates from carry_runs
+    # (off the curve: the kernel and its plain version run the same formulas
+    # on any values below p) and scalars of all-ones and all-zero words
+    for J in (2, 4):
+        cp = fp.encode_plain(carry_runs(fp.p, L, CARRY_GROUPS * J * C, rnd), dev)
+        cp = cp.reshape(CARRY_GROUPS * J, C, L)
+        cs = carry_run_scalars(CARRY_GROUPS * J, gen, dev)
+        hold(held, (name, "K2", f"J={J}, {CARRY_GROUPS} groups of carry-run coordinates"),
+             lambda: cc.joint_ladder_msm_grouped(curve, cs, cp, nbits, J),
+             lambda: cc.joint_ladder_plain(curve, cs.reshape(CARRY_GROUPS, J, S),
+                                           cp.reshape(CARRY_GROUPS, J, C, L), nbits),
+             coord_err(fp), 3)
+        del cp, cs
     hold(held, (name, "K3", f"{lr.shape[0]} x {lr.shape[1]} points"),
          lambda: cc.sum_points_grouped(curve, lr), lambda: cc.sum_points_plain(curve, lr),
          affine_err(curve), 20)

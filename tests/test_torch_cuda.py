@@ -55,6 +55,27 @@ def c(request):
     return bt.curve_ops(request.param)
 
 
+def carry_runs(p, words, count, seed):
+    """count values below p whose word-wise sums, differences and products
+    carry or borrow through long runs: p − 1, p − 2, words of all ones and
+    of zeros under a top word below p's, and values in [p/2, p)."""
+    rnd = random.Random(seed)
+    low = 32 * (words - 1)
+    top, ones = p >> low, (1 << low) - 1
+    out = [p - 1, p - 2, 0, 1, ones, ((top - 1) << low) | ones, p - 1 - ones, p // 2, p // 2 + 1]
+    while len(out) < count:
+        kind = len(out) % 3
+        if kind == 0:
+            ws = [rnd.choice((0, 0xFFFFFFFF, 0xFFFFFFFF, rnd.getrandbits(32)))
+                  for _ in range(words - 1)]
+            out.append(sum(w << (32 * i) for i, w in enumerate(ws)) + (rnd.randrange(top) << low))
+        elif kind == 1:
+            out.append(rnd.randrange(p // 2, p))
+        else:
+            out.append(p - 1 - rnd.getrandbits(rnd.randrange(1, 32 * words)))
+    return out
+
+
 @pytest.mark.parametrize("which", ["fp", "fn"])
 def test_k1_kernel_matches_plain(dev, c, which):
     f = getattr(c, which)
@@ -69,6 +90,41 @@ def test_k1_kernel_matches_plain(dev, c, which):
     assert mont_mul.launches == before + 1
     assert torch.equal(got, mont_mul_plain(a, b, f.spec))
     assert f.decode(got) == [x * y % f.p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("which", ["fp", "fn"])
+def test_k1_kernel_on_carry_runs(dev, c, which):
+    """Every pair of 40 carry-run operands: the kernel equals its plain
+    version and a·b·R^-1 mod p."""
+    f = getattr(c, which)
+    vals = carry_runs(f.p, f.L, 40, 7)
+    xs = [x for x in vals for _ in vals]
+    ys = [y for _ in vals for y in vals]
+    a, b = f.encode_plain(xs, dev), f.encode_plain(ys, dev)
+    got = mont_mul(a, b, f.spec)
+    assert torch.equal(got, mont_mul_plain(a, b, f.spec))
+    rinv = pow(1 << (32 * f.L), -1, f.p)
+    assert f.decode_plain(got) == [x * y * rinv % f.p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("jway", [2, 4])
+def test_k2_kernel_on_carry_runs(dev, c, jway):
+    """Coordinates drawn from carry runs (off the curve: the kernel and its
+    plain version run the same formulas on any values below p) and scalars
+    of all-ones and all-zero words: the kernel equals its plain version word
+    for word."""
+    G, C, L = 37, c.COORDS, c.fp.L
+    coords = carry_runs(c.fp.p, L, G * jway * C, jway)
+    random.Random(jway).shuffle(coords)
+    P = c.fp.encode_plain(coords, dev).reshape(G * jway, C, L)
+    rnd = random.Random(jway + 1)
+    words = [rnd.choice((0, 0xFFFFFFFF, rnd.getrandbits(32))) for _ in range(G * jway * 8)]
+    s = torch.tensor([w - (1 << 32) if w >> 31 else w for w in words],
+                     dtype=torch.int32, device=dev).reshape(G * jway, 8)
+    nbits = c.fn.order_bits
+    got = cc.joint_ladder_msm_grouped(c, s, P, nbits, jway)
+    want = cc.joint_ladder_plain(c, s.reshape(G, jway, 8), P.reshape(G, jway, C, L), nbits)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("jway", [1, 2, 4, 8])
