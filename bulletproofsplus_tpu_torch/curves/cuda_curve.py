@@ -38,6 +38,7 @@ is a (window, point) pair, lane = window·N + point.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,10 +48,11 @@ WINDOW = 4
 JWAYS = (1, 2, 4, 8)
 
 
+@functools.lru_cache(maxsize=None)
 def _consts_words(curve):
     """CurveConsts of csrc/points.cuh at the base field's width L: p, -p⁻¹
     mod 2³², the formulas' constant (2d for Edwards, 3b for Weierstrass) and
-    1 = 2^(32L) mod p, both Montgomery."""
+    1 = 2^(32L) mod p, both Montgomery; built once a curve."""
     spec = curve.fp.spec
     L = spec.num_limbs
     words = (spec.p_words + [spec.n0inv]

@@ -5,15 +5,18 @@ Replaces bulletproofsplus_tpu/fields/pallas_ops.py::_mont_mul_call (the
 of 12-bit limbs, halving passes, a separated REDC and one carry resolve, laid
 out limb-major so the batch fills TPU lanes.
 
-On Hopper (csrc/mont_mul.cu) one thread owns one element and runs word-serial
+On Hopper (csrc/field_ops.cu) one thread owns one element and runs word-serial
 CIOS over L × 32-bit words with 32×32→64 multiplies in PTX carry chains
 (`fe_mul` in csrc/field.cuh): L² + L² multiply-adds, all in registers, at L = 8 (R =
 2^256) or L = 12 (bls12-381's Fq, R = 2^384), the field spec's width, one
-template instance each. What bounds it: each element moves 12·L bytes (two
-operands, one result) for 2·L² wide multiplies, so at the exponent stage's
-262,144 elements it is bound by memory bandwidth and launch latency, not by
-the multiplier; the design reads and writes each word once and keeps every
-intermediate in registers.
+template instance each, in the same source as the field kernels around it
+(fields/field_kernels.py). What bounds it: each element moves up to 12·L
+bytes (two operands, one result) for 2·L² wide multiplies, so at the
+exponent stage's sizes it is bound by memory bandwidth, not by the
+multiplier; the design reads and writes each word once, reads a broadcast
+operand in place (stride 0, kernels.operand) and keeps every intermediate
+in registers. Through the wrapper a call also costs the host's launch
+(kernels.launch keeps that to a lookup, the raw stream and the ctypes call).
 
 The plain version below computes the same function with torch integer ops:
 int64 cannot hold a 32×32-bit product, so it splits words into 16-bit
@@ -21,12 +24,11 @@ halves, multiplies by broadcasting, and reduces by separated REDC (T + M·p)/R.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from .spec import FieldSpec
+from .. import kernels
+from .spec import FieldSpec, ints_to_tensor
 
 MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
@@ -132,6 +134,7 @@ def _consts(spec: FieldSpec, device) -> dict:
         "p16": halves_of(spec.modulus),
         "np16": halves_of(spec.nprime),
         "p64": torch.tensor(spec.p_words, dtype=torch.int64, device=device),
+        "one": ints_to_tensor([spec.r_mod_p], device, spec.num_limbs)[0],
     }
 
 
@@ -179,24 +182,17 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor,
     L = spec.num_limbs.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    at the spec's width (one thread per element) or raises."""
-    a, b = torch.broadcast_tensors(a, b)
+    at the spec's width (one thread per element, a broadcast operand read in
+    place with stride 0: kernels.operand) or raises."""
+    shape = kernels.broadcast_shape(a.shape, b.shape)
     L = spec.num_limbs
-    if a.shape[-1] != L:
-        raise ValueError(f"{spec.name} elements have {L} limbs, got {a.shape[-1]}")
+    if shape[-1] != L:
+        raise ValueError(f"{spec.name} elements have {L} limbs, got {shape[-1]}")
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, spec)
-    from .. import kernels
-
     kernels.check_operands("mont_mul", (a, torch.int32), (b, torch.int32))
-    a = kernels.aligned(a)
-    b = kernels.aligned(b)
-    out = torch.empty_like(a)
-    n = a.numel() // L
+    out, n = kernels.elementwise("bpp_mont_mul", shape, (a, b), spec.kernel_consts)
     if n:
-        mod = (ctypes.c_uint32 * (L + 1))(*spec.p_words, spec.n0inv)
-        kernels.launch("bpp_mont_mul", a.data_ptr(), b.data_ptr(),
-                       out.data_ptr(), n, L, mod, device=a.device)
         mont_mul.launches += 1
     return out
 

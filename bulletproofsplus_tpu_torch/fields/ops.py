@@ -4,10 +4,12 @@ Port of bulletproofsplus_tpu/fields/ops.py::FieldOps. L is the field spec's
 word count (8, or 12 for bls12-381's Fq). Elements are in Montgomery form
 (x·2^(32L) mod p) unless a method says "plain"; every method
 broadcasts over leading axes and returns fully reduced limbs. `mul` is K1
-(fields/mont_mul.py): a CPU tensor takes its plain version, a CUDA tensor
-its kernel. add/sub/neg are short carry chains in torch integer ops; the
-scans the JAX package builds with `lax.associative_scan` are Hillis–Steele
-doubling loops here (log2 of the axis length in `mul` calls).
+(fields/mont_mul.py); add, sub, neg, sum and pow_const (so inv) are the
+field kernels of fields/field_kernels.py, one launch each. For each, a CPU
+tensor takes the plain version and a CUDA tensor the kernel; the XLA
+fusion the JAX package gets for free is those kernels here. The scans the
+JAX package builds with `lax.associative_scan` are Hillis–Steele doubling
+loops here (log2 of the axis length in `mul` calls).
 """
 from __future__ import annotations
 
@@ -16,21 +18,28 @@ from typing import List, Sequence, Union
 
 import torch
 
-from .mont_mul import carry32, i32, mont_mul, mont_mul_plain, reduce_once, u64
+from . import field_kernels as fk
+from .mont_mul import mont_mul, mont_mul_plain, u64
 from .spec import FieldSpec, ints_to_tensor, tensor_to_ints
 
 
 class FieldOps:
     """Montgomery-form ops for one prime field. `plain=True` gives the same
-    ops with the plain multiply (the reference inside kernels' plain
-    versions, which must not launch K1)."""
+    ops on the plain versions alone (the reference inside kernels' plain
+    versions, which must launch nothing, whatever the device)."""
 
     def __init__(self, spec: FieldSpec, plain: bool = False):
         self.spec = spec
         self.p = spec.modulus
         self.L = spec.num_limbs
         self.is_plain = plain
-        self._mul = mont_mul_plain if plain else mont_mul
+        if plain:
+            self._mul, self._add, self._sub, self._neg, self._sum, self._pow = (
+                mont_mul_plain, fk.fe_add_plain, fk.fe_sub_plain, fk.fe_neg_plain,
+                fk.fe_sum_plain, fk.fe_pow_plain)
+        else:
+            self._mul, self._add, self._sub, self._neg, self._sum, self._pow = (
+                mont_mul, fk.fe_add, fk.fe_sub, fk.fe_neg, fk.fe_sum, fk.fe_pow)
         self._dev: dict = {}
 
     @functools.cached_property
@@ -41,8 +50,6 @@ class FieldOps:
         key = str(device)
         if key not in self._dev:
             self._dev[key] = {
-                "p64": torch.tensor(self.spec.p_words, dtype=torch.int64,
-                                    device=device),
                 "one": ints_to_tensor([self.spec.r_mod_p], device, self.L)[0],
                 "one_plain": ints_to_tensor([1], device, self.L)[0],
                 "r2": ints_to_tensor([self.spec.r2_mod_p], device, self.L)[0],
@@ -78,16 +85,13 @@ class FieldOps:
     # -- ring ops ---------------------------------------------------------
 
     def add(self, a, b):
-        s, top = carry32(u64(a) + u64(b))
-        return reduce_once(s, top, self._c(a.device)["p64"])
+        return self._add(a, b, self.spec)
 
     def sub(self, a, b):
-        d, borrow = carry32(u64(a) - u64(b), borrow=True)
-        back, _ = carry32(d + self._c(a.device)["p64"])
-        return i32(torch.where((borrow < 0)[..., None], back, d))
+        return self._sub(a, b, self.spec)
 
     def neg(self, a):
-        return self.sub(torch.zeros_like(a), a)
+        return self._neg(a, self.spec)
 
     def mul(self, a, b):
         return self._mul(a, b, self.spec)
@@ -103,20 +107,9 @@ class FieldOps:
 
     def pow_const(self, a, e: int):
         """a^e for a Python-int exponent: 4-bit fixed window, one 16-entry
-        table then 4 squarings + one multiply per window, MSB first."""
-        one = self.one(a.device).expand_as(a)
-        if e == 0:
-            return one.clone()
-        tab = [one, a]
-        for _ in range(2, 16):
-            tab.append(self.mul(tab[-1], a))
-        nwin = -(-e.bit_length() // 4)
-        acc = tab[(e >> (4 * (nwin - 1))) & 15]
-        for w in range(nwin - 2, -1, -1):
-            for _ in range(4):
-                acc = self.mul(acc, acc)
-            acc = self.mul(acc, tab[(e >> (4 * w)) & 15])
-        return acc
+        table then 4 squarings + one multiply per window, MSB first (one
+        launch on the card)."""
+        return self._pow(a, e, self.spec)
 
     def inv(self, a):
         """Fermat inversion a^(p-2); a must be nonzero."""
@@ -157,13 +150,8 @@ class FieldOps:
                              .contiguous(), -2)
 
     def sum(self, a, axis: int = 0):
-        """Field sum along an axis via a balanced tree of adds."""
-        a = a.movedim(axis, 0)
-        while a.shape[0] > 1:
-            half = a.shape[0] // 2
-            paired = self.add(a[:half], a[half:2 * half])
-            a = torch.cat([paired, a[2 * half:]]) if a.shape[0] % 2 else paired
-        return a[0]
+        """Field sum along an axis (one launch on the card)."""
+        return self._sum(a, self.spec, axis)
 
     # -- predicates and digits --------------------------------------------
 

@@ -19,6 +19,7 @@ and no value is ever left unreduced.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import List, Sequence
@@ -76,6 +77,13 @@ class FieldSpec:
     @property
     def p_words(self) -> List[int]:
         return int_to_words(self.modulus, self.num_limbs)
+
+    @functools.cached_property
+    def kernel_consts(self):
+        """The field's argument to every field kernel (csrc/field_ops.cu),
+        built once: the L words of p, -p^-1 mod 2^32, the L words of R mod p."""
+        words = self.p_words + [self.n0inv] + int_to_words(self.r_mod_p, self.num_limbs)
+        return (ctypes.c_uint32 * len(words))(*words)
 
 
 ED25519_FP = FieldSpec("ed25519_fp", ED25519_P)

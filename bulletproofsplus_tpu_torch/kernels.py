@@ -6,14 +6,19 @@ Each point-kernel source builds once per point family (csrc/family.cuh:
 -DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
 bpp_<kernel>_weierstrass at 8 words a coordinate, 2 gives
 bpp_<kernel>_weierstrass12 at 12), and all thirteen compilations run at
-once; K1 (mont_mul.cu) holds both of its widths in one unit. The build
+once; the field kernels (field_ops.cu: K1's product, add, sub, neg, sum and
+power) hold both of their widths in one unit. The build
 runs at first use, into bulletproofsplus_tpu_torch/build/ (git-ignored),
 keyed by a hash of the sources, so a checkout builds everything it runs from
 its own files.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `launch` raises on a nonzero code. Launch counters live
-on the Python wrappers (`mont_mul.launches`, ...), not here.
+on the Python wrappers (`mont_mul.launches`, ...), not here. A launch costs
+the host little: the entry point is looked up once, the stream is read
+without building a Stream object, and the device is switched only when the
+tensor is not on the current one. `operand` passes a tensor to the field
+kernels without copying it where it is aligned, broadcast included.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("mont_mul.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu",
+SOURCES = ("field_ops.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu",
            "ladder.cu")
 POINT_SOURCES = SOURCES[1:]
 FAMILIES = ("edwards", "weierstrass", "weierstrass12")     # BPP_FAMILY 0, 1, 2
@@ -44,12 +49,22 @@ _POINT_SIGNATURES = {
     "bpp_fixed_lookup": [_P, _P, _P, _LL, _I, _I, _U32P],
     "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
 }
+_OPERAND = [_P, _LL, _LL, _LL]                  # pointer, inner, s_inner, s_outer
+_FIELD_SIGNATURES = {
+    "bpp_mont_mul": [*_OPERAND, *_OPERAND, _P, _LL, _I, _U32P],
+    "bpp_fe_add": [*_OPERAND, *_OPERAND, _P, _LL, _I, _U32P],
+    "bpp_fe_sub": [*_OPERAND, *_OPERAND, _P, _LL, _I, _U32P],
+    "bpp_fe_neg": [*_OPERAND, _P, _LL, _I, _U32P],
+    "bpp_fe_sum": [_P, _P, _LL, _LL, _LL, _I, _U32P],
+    "bpp_fe_pow": [_P, _P, _LL, _I, _U32P, _I, _U32P],
+}
 # entry point: argument types before the trailing stream pointer
-SIGNATURES = {"bpp_mont_mul": [_P, _P, _P, _LL, _I, _U32P],
+SIGNATURES = {**_FIELD_SIGNATURES,
               **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
                  for fam in FAMILIES}}
 
 _LIB = None
+_ENTRIES: dict = {}
 BUILD_LOG = ""
 
 
@@ -141,22 +156,109 @@ def check_operands(kernel: str, *pairs) -> None:
             raise ValueError(f"{kernel}: expected {dtype}, got {t.dtype}")
 
 
+def _entry(name: str):
+    """The C function of entry point `name`, looked up once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        if name not in SIGNATURES:
+            raise ValueError(f"no kernel entry point {name!r}")
+        fn = _ENTRIES[name] = getattr(library(), name)
+    return fn
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(name: str, *args, device) -> None:
     """Call C entry point `name` on `device`'s current stream; raise if there
     is no such entry point (an unknown point family) or the launch reports a
     CUDA error."""
-    if name not in SIGNATURES:
-        raise ValueError(f"no kernel entry point {name!r}")
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    fn = _entry(name)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        msg = lib.bpp_error_string(err).decode()
+        msg = library().bpp_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of t whose data pointer is 16-byte aligned."""
+    """A contiguous copy of t whose data pointer is 16-byte aligned (t itself
+    where it already is one)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def elementwise(name: str, shape, operands, consts) -> tuple:
+    """Launch field kernel `name` (bpp_mont_mul, bpp_fe_add, bpp_fe_sub,
+    bpp_fe_neg) over the elements of the broadcast `shape` (..., L), each
+    of `operands` read as `operand` passes it; (output, elements). An empty
+    shape launches nothing."""
+    out = torch.empty(shape, dtype=torch.int32, device=operands[0].device)
+    L = shape[-1]
+    n = out.numel() // L if L else 0
+    if n:
+        args, keep = [], []
+        for t in operands:
+            if t.shape == shape and t.is_contiguous() and t.data_ptr() % 16 == 0:
+                args += (t.data_ptr(), n, L, 0)
+                continue
+            kept, *desc = operand(t, shape)
+            keep.append(kept)
+            args += desc
+        launch(name, *args, out.data_ptr(), n, L, consts, device=out.device)
+    return out, n
+
+
+def broadcast_shape(x, y) -> torch.Size:
+    """torch.broadcast_shapes of two shapes, at a fraction of its host cost
+    (a field kernel's wrapper runs on every call)."""
+    if x == y:
+        return x
+    rank = max(len(x), len(y))
+    x = (1,) * (rank - len(x)) + tuple(x)
+    y = (1,) * (rank - len(y)) + tuple(y)
+    out = []
+    for p, q in zip(x, y):
+        if p != q and p != 1 and q != 1:
+            raise ValueError(f"shapes {x} and {y} do not broadcast")
+        out.append(q if p == 1 else p)
+    return torch.Size(out)
+
+
+def operand(t: torch.Tensor, shape) -> tuple:
+    """(tensor to keep alive, pointer, inner, s_inner, s_outer): t broadcast to
+    `shape` (..., L) as a field kernel reads it, element i at pointer +
+    (i // inner)·s_outer + (i % inner)·s_inner words (csrc/field_ops.cu,
+    Operand). A broadcast operand keeps its stride 0 and is not copied; t
+    is copied (once, at its own size) only where its words are not
+    contiguous or an element would not start 16-byte aligned, and broadcast
+    out to `shape` only where its strides do not fold into two levels."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:-1]):
+        t = aligned(t)
+    v = t.expand(*shape)
+    dims = []
+    for size, stride in zip(v.shape[:-1], v.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    if len(dims) > 2:
+        v = v.contiguous()
+        return v, v.data_ptr(), v[..., 0].numel(), shape[-1], 0
+    if len(dims) == 2:
+        (_, s_outer), (inner, s_inner) = dims
+        return t, t.data_ptr(), inner, s_inner, s_outer
+    inner, s_inner = dims[0] if dims else (1, 0)
+    return t, t.data_ptr(), inner, s_inner, 0

@@ -17,6 +17,14 @@ family (the suffix of a point kernel's entry point):
   is 3 coordinates of 8 words, 96 bytes, or of 12 words (weierstrass12,
   bls12-381), 144 bytes. Scalars are 8 words, 32 bytes, on every curve.
 
+The field kernels (csrc/field_ops.cu) move L-word elements: K1's product
+and add/sub/neg read each distinct element of an operand once (a broadcast
+operand's few) and write n; fe_sum reads its (B, R, C) input and writes
+(B, C); these are bound by bytes, and only the product counts operations.
+fe_pow is bound by operations: per element 14 table products, 4 squarings
+a window below the top one, and one product a nonzero digit there (the
+kernel skips a zero digit's product by 1).
+
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
 read the same formulas off the same launches (`recorded_launches`).
@@ -46,14 +54,46 @@ def ladder_muls(groups: int, jway: int, nwin: int, family: str = "edwards") -> i
     return groups * (jway * 14 * add + nwin * (4 * dbl + jway * add))
 
 
+def _distinct(n: int, inner: int, s_inner: int, s_outer: int) -> int:
+    """Distinct elements a field kernel reads of an operand that it indexes
+    as (i // inner)·s_outer + (i % inner)·s_inner, i < n."""
+    return (1 if s_inner == 0 else inner) * (1 if s_outer == 0 else -(-n // inner))
+
+
+def pow_muls(exp_words, nwin: int) -> int:
+    """Montgomery products of one element's fe_pow chain."""
+    if nwin == 0:
+        return 0
+    e = sum(int(w) << (32 * i) for i, w in enumerate(exp_words))
+    nonzero = sum(1 for w in range(nwin - 1) if (e >> (4 * w)) & 15)
+    return 14 + 4 * (nwin - 1) + nonzero
+
+
+# field entry point → position of its word count in the launch's arguments
+FIELD_WORDS = {"bpp_mont_mul": 10, "bpp_fe_add": 10, "bpp_fe_sub": 10, "bpp_fe_neg": 6,
+               "bpp_fe_sum": 5, "bpp_fe_pow": 3}
+
+
 def launch_work(name: str, args) -> tuple:
     """(bytes, Montgomery products) of one launch of C entry point `name`
     with the arguments `args` it was given (pointers first, as in
     kernels.SIGNATURES)."""
-    if name == "bpp_mont_mul":
-        n, nl = args[3:5]
-        return n * 3 * 4 * nl, n
+    if name in ("bpp_mont_mul", "bpp_fe_add", "bpp_fe_sub"):
+        n, nl = args[9:11]
+        read = _distinct(n, *args[1:4]) + _distinct(n, *args[5:8])
+        return (read + n) * 4 * nl, (n if name == "bpp_mont_mul" else 0)
+    if name == "bpp_fe_neg":
+        n, nl = args[5:7]
+        return (_distinct(n, *args[1:4]) + n) * 4 * nl, 0
+    if name == "bpp_fe_sum":
+        B, R, C, nl = args[2:6]
+        return B * (R + 1) * C * 4 * nl, 0
+    if name == "bpp_fe_pow":
+        n, nl, exp_words, nwin = args[2:6]
+        return 2 * n * 4 * nl, n * pow_muls(exp_words, nwin)
     name, family = name.rsplit("_", 1)
+    if family not in FAMILIES:
+        raise ValueError(f"no work model for {name}_{family}")
     add, _, _, pt = FAMILIES[family]
     if name == "bpp_joint_ladder":
         G, J, nwin = args[3:6]
@@ -68,13 +108,13 @@ def launch_work(name: str, args) -> tuple:
     if name == "bpp_ladder":
         N, nwin = args[3:5]
         return N * (2 * pt + SCALAR_BYTES), ladder_muls(N, 1, nwin, family)
-    raise ValueError(f"no work model for {name}")
+    raise ValueError(f"no work model for {name}_{family}")
 
 
 def launch_words(name: str, args) -> int:
     """Words of the field elements one launch multiplies."""
-    if name == "bpp_mont_mul":
-        return args[4]
+    if name in FIELD_WORDS:
+        return args[FIELD_WORDS[name]]
     return FAMILIES[name.rsplit("_", 1)[1]][2]
 
 

@@ -10,7 +10,13 @@ final line:
   2. hold K1 (Montgomery multiply) against its plain PyTorch version at both
      of the curve's moduli on 262,144 elements that include p − 1, values
      in [p/2, p) and carry runs (words of all ones and of zeros; bls12-381's
-     Fq at 12 words a value), and K2 (joint ladder,
+     Fq at 12 words a value), timed through its wrapper and as a CUDA graph
+     of launches (no host work); then, at both moduli, the field kernels
+     around it at the path's shapes, on operands drawn from the same kind of
+     values: fe_add with a (K, 1) operand broadcast over (K, mn), fe_sub
+     and fe_neg on (K, mn), fe_sum over K of (K, mn) (the RLC merge) and
+     over the row of (K, mn/2) (round 0's c_L), and fe_pow by p − 2 on K
+     values (a batch inversion); and K2 (joint ladder,
      J = 8) and K3 (grouped point sum) at the shapes of the verify batch
      below (edwards25519: 1,249 groups; secp256k1: 2,913; bls12-381: 9,185,
      K2 compared on its first 4,096), and time both;
@@ -19,8 +25,9 @@ final line:
      (unsigned) and on a smaller signed table;
   4. batch-verify K = 256 statements (statement k is fixture proof k mod P,
      each with its own random weight: the MSM work of 256 proofs) with every
-     launch counter at 0 before the run; the batch must accept and K1-K4
-     must have run;
+     launch counter at 0 before the run; the batch must accept and K1 (its
+     product and every field kernel) and K2-K4 must have run; then one run
+     under torch.profiler counts each stage's launches;
   5. the same batch with one scalar of one proof changed must reject;
   6. single verify (K = 1) of one fixture proof must accept; on
      edwards25519 the exponent vectors of two proofs must equal those of
@@ -42,13 +49,15 @@ final line:
      2^n, γ = 2i + k + 3), committed outside the timed window by host running
      sums (V(k, i) = V(k, i − 1) + 3g + 2h, V(k, 0) = V(k − 1, 0) + 7g + h,
      one shared inversion; a sample must equal PublicKey.commitment), with
-     every launch counter at 0 before the first run; K1, K2, K3 and K5 must
-     have run; then batch-verify the proven batch (accept) and a tampered
-     copy (reject);
+     every launch counter at 0 before the first run; K1 (product and field
+     kernels), K2, K3 and K5 must have run; one profiled run counts each
+     stage's launches; then batch-verify the proven batch (accept) and a
+     tampered copy (reject);
  10. prove and verify one m = 1 statement at n = 64.
-Last, it prints each curve's batch timings on their own lines, the kernels'
-JSON line (one row for each curve, kernel and shape held above: time, plain
-time, bound and launches), the card, and the device line.
+Last, it prints each curve's batch timings on their own lines, the launches
+of each profiled stage, the kernels' JSON line (one row for each curve,
+kernel and shape held above: time, plain time, bound and launches), the
+card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
 """
@@ -77,11 +86,25 @@ PLAIN_PREFIX = 16_384   # groups on which K2 at the prover's shapes meets its pl
 VERIFY_PREFIX = {"bls12_381": 4_096}
 CARRY_GROUPS = 4_096    # groups of K2's carry-run holds at J = 2 and 4
 DEVICE = "cuda:0"
-SOURCES = {"K1": ("mont_mul", "mont_mul.cu", "fields/pallas_ops.py:369"),
+# K1 is its product and the field kernels around it (csrc/field_ops.cu); the
+# JAX package runs those as XLA-fused jnp (FieldOps methods, fields/ops.py),
+# so K1's Pallas call is what each of them stands beside
+FIELD_KERNELS = {"K1": "mont_mul", "K1 add": "fe_add", "K1 sub": "fe_sub",
+                 "K1 neg": "fe_neg", "K1 sum": "fe_sum", "K1 pow": "fe_pow"}
+JAX_COUNTERPARTS = {"K1": "fields/pallas_ops.py:331", "K1 add": "fields/ops.py:205",
+                    "K1 sub": "fields/ops.py:209", "K1 neg": "fields/ops.py:213",
+                    "K1 sum": "fields/ops.py:389", "K1 pow": "fields/ops.py:298"}
+SOURCES = {**{k: (fname, "field_ops.cu", "fields/pallas_ops.py:369")
+              for k, fname in FIELD_KERNELS.items()},
            "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
            "K3": ("sum_points", "sum_points.cu", "curves/pallas_curve.py:553"),
            "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
            "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
+VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
+                 "bpp::fixed_msm", "bpp::identity_check")
+PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
+                "bpp::final_ab")
+TRACE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_trace.json")
 
 
 def log(msg: str) -> None:
@@ -99,6 +122,78 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of `fn`'s launches replayed from a CUDA
+    graph of `reps` calls: the device's time without the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def union_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def stage_profile(run, stages, trace: str = TRACE):
+    """Run `run` once under torch.profiler and write its Chrome trace to
+    `trace`. Returns (per stage: host_ms, device_span_ms, device_busy_ms and
+    the kernels launched inside its range; the run's wall_ms, device_busy_ms
+    and kernel_launches; the profiler; the trace's kernel events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    per_stage = {}
+    for name in stages:
+        host = [e for e in events if e.get("name") == name
+                and e.get("cat") == "user_annotation"]
+        spans = [(g["ts"], g["ts"] + g["dur"]) for g in events
+                 if g.get("name") == name and g.get("cat") == "gpu_user_annotation"]
+        mine = [e for e in kernels if any(lo <= e["ts"] <= hi for lo, hi in spans)]
+        per_stage[name] = {
+            "host_ms": sum(e["dur"] for e in host) / 1e3,
+            "device_span_ms": sum(hi - lo for lo, hi in spans) / 1e3,
+            "device_busy_ms": union_us([(e["ts"], e["ts"] + e["dur"]) for e in mine]) / 1e3,
+            "launches": len(mine),
+        }
+    whole = {"wall_ms": wall_ms,
+             "device_busy_ms": union_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) / 1e3,
+             "kernel_launches": len(kernels)}
+    return per_stage, whole, prof, kernels
 
 
 def once_ms(fn):
@@ -143,11 +238,13 @@ def coord_err(field):
     return err
 
 
-def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None):
+def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None, graph=False):
     """Hold one kernel call against its plain version on the same inputs;
     fail if they differ. Records held[key] = (max_abs_err, kernel ms, plain
-    ms, (bound_ms, bound_by)), the bound being that of the launches the
-    call made, and returns the kernel's output. With `prefix`, the plain
+    ms, (bound_ms, bound_by), graph ms or None), the bound being that of
+    the launches the call made, and returns the kernel's output. The kernel
+    ms is that of back-to-back wrapper calls; with `graph`, also that of the
+    same launches replayed from a CUDA graph. With `prefix`, the plain
     version runs on the first `prefix` groups only (independent groups) and
     meets that prefix of the kernel's output."""
     from bulletproofsplus_tpu_torch import roofline
@@ -157,9 +254,11 @@ def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None):
     ref, plain_ms = once_ms(plain)
     err = err_of(ker if prefix is None else ker[:prefix], ref)
     ms = cuda_ms(kernel, reps)
-    held[key] = (err, ms, plain_ms, roofline.bound(calls))
+    g_ms = graph_ms(kernel, reps) if graph else None
+    held[key] = (err, ms, plain_ms, roofline.bound(calls), g_ms)
     what = " ".join(key)
-    log(f"{what}: err {err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms"
+    log(f"{what}: err {err}, kernel {ms:.4f} ms"
+        f"{'' if g_ms is None else f' ({g_ms:.4f} ms from a graph)'}, plain {plain_ms:.1f} ms"
         f"{'' if prefix is None else f' (first {prefix} groups)'}, "
         f"bound {held[key][3][0]:.4f} ms")
     if err != 0:
@@ -259,6 +358,36 @@ def field_operands(f, count: int, rnd, device):
     return f.encode(vals, device)
 
 
+def field_holds(held: dict, name: str, f, base, mn: int, gen, device) -> None:
+    """Hold the field kernels around K1 against their plain versions at the
+    path's shapes, at f's width, on values drawn at random from `base`
+    (field_operands: carry runs, p − 1, values in [p/2, p))."""
+    from bulletproofsplus_tpu_torch.fields import field_kernels as fk
+
+    spec, K = f.spec, K_BATCH
+
+    def draw(*shape):
+        return base[torch.randint(0, base.shape[0], shape, generator=gen, device=device)]
+
+    X, Y, z = draw(K, mn), draw(K, mn), draw(K, 1)
+    row, vals = draw(K, mn // 2), draw(K)
+    err, mod = coord_err(f), f"mod {spec.name}"
+    hold(held, (name, "K1 add", f"({K}, {mn}) + ({K}, 1) {mod}"),
+         lambda: fk.fe_add(X, z, spec), lambda: fk.fe_add_plain(X, z, spec), err, 20, graph=True)
+    hold(held, (name, "K1 sub", f"({K}, {mn}) - ({K}, {mn}) {mod}"),
+         lambda: fk.fe_sub(X, Y, spec), lambda: fk.fe_sub_plain(X, Y, spec), err, 20, graph=True)
+    hold(held, (name, "K1 neg", f"({K}, {mn}) {mod}"),
+         lambda: fk.fe_neg(X, spec), lambda: fk.fe_neg_plain(X, spec), err, 20, graph=True)
+    hold(held, (name, "K1 sum", f"over K of ({K}, {mn}) {mod}"),
+         lambda: fk.fe_sum(X, spec, 0), lambda: fk.fe_sum_plain(X, spec, 0), err, 20, graph=True)
+    hold(held, (name, "K1 sum", f"over the row of ({K}, {mn // 2}) {mod}"),
+         lambda: fk.fe_sum(row, spec, 1), lambda: fk.fe_sum_plain(row, spec, 1), err, 20,
+         graph=True)
+    hold(held, (name, "K1 pow", f"{K} values ^ (p - 2) {mod}"),
+         lambda: fk.fe_pow(vals, f.p - 2, spec), lambda: fk.fe_pow_plain(vals, f.p - 2, spec),
+         err, 20, graph=True)
+
+
 def carry_run_scalars(count: int, gen, device):
     """count plain-form scalars whose words are all ones, all zeros or
     random (digits 15 and 0 in long runs)."""
@@ -306,13 +435,17 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     (J, G), fold_shape, lr_shape = k2_shapes(n, m)
     log(f"== {name}: n = {n}, m = {m}, K = {K_BATCH}, {len(rows)} fixture statements")
 
-    # -- 2. K1, K2, K3 against their plain versions -------------------------
+    # -- 2. K1 and the field kernels, K2, K3 against their plain versions ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
     for f in (fp, fn):
         a = field_operands(f, K1_ELEMENTS, rnd, dev)
         b = field_operands(f, K1_ELEMENTS, rnd, dev)
         hold(held, (name, "K1", f"{K1_ELEMENTS} elements mod {f.spec.name}"),
              lambda: mont_mul(a, b, f.spec), lambda: mont_mul_plain(a, b, f.spec),
-             lambda ker, ref: int_err(f.decode(ker), f.decode(ref)), 20)
+             lambda ker, ref: int_err(f.decode(ker), f.decode(ref)), 20, graph=True)
+        field_holds(held, name, f, a, mn, gen, dev)
+        del a, b
 
     pts = random_points(curve, G * J, rnd.randrange(1 << 30), dev)
     scal = fn.encode_plain([rnd.randrange(fn.p) for _ in range(G * J)], dev)
@@ -369,12 +502,14 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         batch_verify(curve, pk, n, b, V, [DeterministicTranscript(m)] * K_BATCH,
                      rng=lambda: wrng.getrandbits(128))
 
-    _, first_ms, launches = counted(run_batch, ("K1", "K2", "K3", "K4"))
+    _, first_ms, launches = counted(run_batch, (*FIELD_KERNELS, "K2", "K3", "K4"))
     log(f"batch_verify K={K_BATCH} accepted ({first_ms:.1f} ms); launches {launches}")
     warm = [once_ms(run_batch)[1] for _ in range(3)]
     best = min(warm)
     log(f"warm batch_verify: {[round(x, 1) for x in warm]} ms; best {best:.1f} ms "
         f"= {K_BATCH / best * 1e3:.1f} verify/s")
+    stages = {"verify": stage_profile(run_batch, VERIFY_STAGES)[:2]}
+    log(f"batch_verify stages: {stages['verify']}")
 
     # -- 5. tampered batch --------------------------------------------------
     bad = batch.take(slice(None))
@@ -415,8 +550,6 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
                    lambda: cc.ladder_scalar_mul(curve, s5, pts5, nbits),
                    lambda: cc.ladder_plain(curve, s5, pts5, nbits), coord_err(fp), 20)
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     half = mn // 2
     Gv, Hv = pk.G_vec, pk.H_vec
     # round 0's fold: (G1_i, G2_i) and (H1_i, H2_i) pairs of every proof
@@ -526,12 +659,15 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         return batch_prove(curve, pk, n, bench, [DeterministicTranscript(m)] * K_BATCH,
                            [DeterministicRng(m)] * K_BATCH)
 
-    proven, prove_first_ms, prove_launches = counted(run_prove, ("K1", "K2", "K3", "K5"))
+    proven, prove_first_ms, prove_launches = counted(run_prove,
+                                                     (*FIELD_KERNELS, "K2", "K3", "K5"))
     log(f"batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}")
     prove_warm = [once_ms(run_prove)[1] for _ in range(3)]
     prove_best = min(prove_warm)
     log(f"warm batch_prove: {[round(x, 1) for x in prove_warm]} ms; best "
         f"{prove_best:.1f} ms = {K_BATCH / prove_best * 1e3:.1f} proofs/s")
+    stages["prove"] = stage_profile(run_prove, PROVE_STAGES)[:2]
+    log(f"batch_prove stages: {stages['prove']}")
     bench_trs = [DeterministicTranscript(m)] * K_BATCH
     batch_verify(curve, pk, n, proven, V_bench, bench_trs,
                  rng=lambda: wrng.getrandbits(128))
@@ -564,7 +700,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
                               "proofs_per_s": K_BATCH / prove_best * 1e3,
                               "launches": prove_launches,
                               "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}}]
-    return lines, {"batch_verify": launches, "batch_prove": prove_launches}
+    return lines, {"batch_verify": launches, "batch_prove": prove_launches}, stages
 
 
 def main() -> int:
@@ -579,6 +715,7 @@ def main() -> int:
     from bulletproofsplus_tpu_torch import kernels
     from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+    from bulletproofsplus_tpu_torch.fields import field_kernels as fk
     from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul
 
     # -- 1. build + card ---------------------------------------------------
@@ -593,7 +730,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
 
-    wrappers = {"K1": mont_mul, "K2": cc.joint_ladder_msm_grouped,
+    wrappers = {**{k: mont_mul if k == "K1" else getattr(fk, fname)
+                   for k, fname in FIELD_KERNELS.items()},
+                "K2": cc.joint_ladder_msm_grouped,
                 "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
                 "K5": cc.ladder_scalar_mul}
 
@@ -609,28 +748,36 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the path: {missing}")
         return out, ms, counts
 
-    # held[(curve, kernel, shape)] = (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
-    held, lines, launches = {}, [], {}
+    # held[(curve, kernel, shape)] =
+    #     (max_abs_err, ms, plain_ms, (bound_ms, bound_by), graph_ms or None)
+    held, lines, launches, stages = {}, [], {}, {}
     for i, name in enumerate(CURVE_NAMES):
-        curve_lines, launches[name] = smoke_curve(name, args.seed + 10 * i, held, counted)
+        curve_lines, launches[name], stages[name] = smoke_curve(
+            name, args.seed + 10 * i, held, counted)
         lines += curve_lines
 
     report = []
-    for (name, k, shape), (err, ms, plain_ms, (bound_ms, bound_by)) in held.items():
+    for (name, k, shape), (err, ms, plain_ms, (bound_ms, bound_by), g_ms) in held.items():
         fname, src, tpu = SOURCES[k]
         by_path = {path: counts[k] for path, counts in launches[name].items()}
-        report.append({
-            "name": f"{k} {fname} ({name}, {shape})", "route": "cuda",
+        row = {
+            "name": f"{k.split()[0]} {fname} ({name}, {shape})", "route": "cuda",
             "source": f"bulletproofsplus_tpu_torch/csrc/{src}",
             "replaces": f"bulletproofsplus_tpu/{tpu}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes Montgomery products on 8- or
-            # 12-word limbs or point ladders and sums on any curve family
-            "library_ms": None})
+            # no single PyTorch call computes Montgomery products, sums or
+            # powers mod p on 8- or 12-word limbs, or point ladders and sums
+            # on any curve family
+            "library_ms": None}
+        if k in JAX_COUNTERPARTS:
+            row["graph_ms"] = g_ms
+            row["jax_counterpart"] = f"bulletproofsplus_tpu/{JAX_COUNTERPARTS[k]}"
+        report.append(row)
     for line in lines:
         print(json.dumps(line))
+    print(json.dumps({"stages": stages}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ seeded inputs, through the wrappers a user calls:
   chip_smoke.random_scalars. Mean of `--reps` launches after a warm-up.
 - K1 (`mont_mul`) at chip_smoke.py's shape: 262,144 elements at both of the
   curve's moduli, operands from chip_smoke.field_operands (carry runs
-  included). Mean of 20 launches after a warm-up.
+  included). Mean of 20 launches after a warm-up, through the wrapper
+  (ms) and replayed from a CUDA graph of 20 wrapper calls (graph_ms: the
+  device's time without the host's).
 
 Every run's output must equal the first's word for word (the trees compute
 the same operations in the same order); a difference fails the run. Prints
@@ -74,12 +76,13 @@ def worker(tree: str, curves: list, reps: int, device: str = "cuda:0") -> None:
     cs = chip_smoke()
     dev = torch.device(device)
 
-    def timed(key, instance, call, nreps):
+    def timed(key, instance, call, nreps, graph=False):
         with roofline.recorded_launches() as calls:
             out = call()
         ms = cs.cuda_ms(call, nreps)
-        print(json.dumps({"key": key, "instance": instance, "ms": ms, "digest": digest(out),
-                          "bound": roofline.bound(calls)}), flush=True)
+        g_ms = cs.graph_ms(call, nreps) if graph else None
+        print(json.dumps({"key": key, "instance": instance, "ms": ms, "graph_ms": g_ms,
+                          "digest": digest(out), "bound": roofline.bound(calls)}), flush=True)
 
     for name in curves:
         curve = curve_ops(name)
@@ -100,7 +103,7 @@ def worker(tree: str, curves: list, reps: int, device: str = "cuda:0") -> None:
             a = cs.field_operands(f, cs.K1_ELEMENTS, rnd, dev)
             b = cs.field_operands(f, cs.K1_ELEMENTS, rnd, dev)
             timed(["K1", name, f"{cs.K1_ELEMENTS} elements mod {f.spec.name}"], ["K1", f.L],
-                  lambda: mont_mul(a, b, f.spec), K1_REPS)
+                  lambda: mont_mul(a, b, f.spec), K1_REPS, graph=True)
 
 
 def build(tree: str) -> None:
@@ -125,7 +128,7 @@ def registers(tree: str) -> dict:
         if "joint_ladder_kernel" in fn:
             fam = next(f for key, f in fams.items() if key in fn)
             key = ("K2", fam, int(re.search(r"Li(\d+)EEEv", fn).group(1)))
-        elif "mont_mul_kernel" in fn:
+        elif "mont_mul_kernel" in fn or "elementwise_kernelILi" in fn and "ELi0E" in fn:
             key = ("K1", int(re.search(r"ILi(\d+)E", fn).group(1)))
         else:
             continue
@@ -185,6 +188,7 @@ def main() -> int:
                 print(f"bench_torch_k2: {label} differs from {first} at {key}", file=sys.stderr)
             ms = [g["ms"] for g in got]
             line["variants"][label] = {"ms": ms, "mean_ms": sum(ms) / len(ms),
+                                       "graph_ms": [g["graph_ms"] for g in got],
                                        "registers_spill": regs[label].get(tuple(line0["instance"]))}
         print(json.dumps(line), flush=True)
     return 0 if ok else 1

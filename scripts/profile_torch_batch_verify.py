@@ -34,30 +34,13 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
-                 "bpp::fixed_msm", "bpp::identity_check")
-PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
-                "bpp::final_ab")
 FIXTURES = {"edwards25519": "ed25519_n64_m16_det.bin",
             "secp256k1": "secp256k1_n64_m64_det.bin",
             "bls12_381": "bls12_381_n64_m256_det.bin"}
-
-
-def union_us(intervals):
-    total, end = 0.0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
 
 
 def main() -> int:
@@ -75,6 +58,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    from chip_smoke import PROVE_STAGES, VERIFY_STAGES, stage_profile
+
     from bulletproofsplus_tpu_torch import roofline
     from bulletproofsplus_tpu_torch import (
         DeterministicRng,
@@ -128,33 +113,8 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         warm_ms.append((time.perf_counter() - t0) * 1e3)
-    with roofline.recorded_launches() as calls, \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    with open(args.trace) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    busy_us = union_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
-    per_stage = {}
-    for name in stages:
-        host = [e for e in events if e.get("name") == name
-                and e.get("cat") == "user_annotation"]
-        gpu = [e for e in events if e.get("name") == name
-               and e.get("cat") == "gpu_user_annotation"]
-        spans = [(g["ts"], g["ts"] + g["dur"]) for g in gpu]
-        mine = [e for e in kernels if any(lo <= e["ts"] <= hi for lo, hi in spans)]
-        per_stage[name] = {
-            "host_ms": sum(e["dur"] for e in host) / 1e3,
-            "device_span_ms": sum(e["dur"] for e in gpu) / 1e3,
-            "device_busy_ms": union_us([(e["ts"], e["ts"] + e["dur"])
-                                        for e in mine]) / 1e3,
-            "launches": len(mine),
-        }
+    with roofline.recorded_launches() as calls:
+        per_stage, whole, prof, kernels = stage_profile(run, stages, args.trace)
     bounds = {}
     for name in sorted({name for name, _ in calls}):
         mine = [c for c in calls if c[0] == name]
@@ -173,10 +133,8 @@ def main() -> int:
     print(json.dumps({
         "card": card, "curve": args.curve, "n": n, "m": m,
         "mode": "prove" if args.prove else "verify", "K": K,
-        "warm_ms_unprofiled": warm_ms, "wall_ms": wall_ms,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / 1e3 / wall_ms,
-        "kernel_launches": len(kernels),
+        "warm_ms_unprofiled": warm_ms, **whole,
+        "device_busy_share": whole["device_busy_ms"] / whole["wall_ms"],
         "stages": per_stage,
         "kernel_bounds": bounds,
         "top_kernels": [{"name": k, "count": c, "ms": t} for k, (c, t) in top],

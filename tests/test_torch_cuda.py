@@ -1,4 +1,5 @@
-"""Kernels K1–K5 against their plain versions, every point family and width,
+"""Kernels K1–K5 (K1 with the field kernels around its product) against their
+plain versions, every point family and width,
 and the port's prover and verifier on edwards25519, secp256k1 and
 bls12-381, on an NVIDIA card.
 
@@ -19,6 +20,7 @@ import bulletproofsplus_tpu_torch as bt
 from bulletproofsplus_tpu_torch import serialize
 from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+from bulletproofsplus_tpu_torch.fields import field_kernels as fk
 from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
 from bulletproofsplus_tpu_torch.msm.fixed import precompute_tables, precompute_tables_signed
 
@@ -105,6 +107,47 @@ def test_k1_kernel_on_carry_runs(dev, c, which):
     assert torch.equal(got, mont_mul_plain(a, b, f.spec))
     rinv = pow(1 << (32 * f.L), -1, f.p)
     assert f.decode_plain(got) == [x * y * rinv % f.p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("which", ["fp", "fn"])
+def test_field_kernels_on_carry_runs(dev, c, which):
+    """add, sub, neg, the product with broadcast operands (stride-0 reads),
+    sums over a leading and an inner axis at odd and power-of-two lengths,
+    and powers (p − 2, small, 0), all on carry-run values at the field's
+    width: each kernel equals its plain version word for word and launches
+    once."""
+    f = getattr(c, which)
+    spec, L = f.spec, f.L
+    vals = carry_runs(f.p, L, 40, 11)
+    xs = [x for x in vals for _ in vals]
+    ys = [y for _ in vals for y in vals]
+    a = f.encode_plain(xs, dev).reshape(40, 40, L)
+    b = f.encode_plain(ys, dev).reshape(40, 40, L)
+    pairs = [(a, b), (a, b[:, :1]), (a[0, 0], b), (a[:, 7:], b[:, :33]), (a[:, ::2], b[:, 1::2])]
+    for x, y in pairs:
+        for wrapper, plain in ((fk.fe_add, fk.fe_add_plain), (fk.fe_sub, fk.fe_sub_plain),
+                               (mont_mul, mont_mul_plain)):
+            before = wrapper.launches
+            assert torch.equal(wrapper(x, y, spec), plain(x, y, spec))
+            assert wrapper.launches == before + 1
+        assert torch.equal(fk.fe_neg(x, spec), fk.fe_neg_plain(x, spec))
+    rinv = pow(1 << (32 * L), -1, f.p)
+    assert f.decode_plain(fk.fe_add(a, b, spec).reshape(-1, L)) == [
+        (x + y) % f.p for x, y in zip(xs, ys)]
+    assert f.decode_plain(mont_mul(a, b, spec).reshape(-1, L)) == [
+        x * y * rinv % f.p for x, y in zip(xs, ys)]
+    for length in (39, 40, 256, 257):
+        t = f.encode_plain(carry_runs(f.p, L, 3 * length, length), dev)
+        for shape, axis in (((length, 3, L), 0), ((3, length, L), 1)):
+            before = fk.fe_sum.launches
+            assert torch.equal(fk.fe_sum(t.reshape(shape), spec, axis),
+                               fk.fe_sum_plain(t.reshape(shape), spec, axis))
+            assert fk.fe_sum.launches == before + 1
+    nonzero = [v for v in vals if v]
+    m = f.encode(nonzero, dev)
+    for e in (f.p - 2, 0, 1, 12345):
+        assert torch.equal(fk.fe_pow(m, e, spec), fk.fe_pow_plain(m, e, spec))
+    assert f.decode(f.inv(m)) == [pow(v, -1, f.p) for v in nonzero]
 
 
 @pytest.mark.parametrize("jway", [2, 4])

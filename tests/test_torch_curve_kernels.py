@@ -232,5 +232,7 @@ def test_kernel_entry_points_per_family():
     assert wei12 == (10 * 8 * 176 + 10 * 144, wei[1])
     assert curve_ops("bls12_381").FAMILY == "weierstrass12"
     assert roofline.launch_words("bpp_joint_ladder_weierstrass12", args) == 12
-    assert roofline.launch_work("bpp_mont_mul", (0, 0, 0, 100, 12, None)) == (100 * 144, 100)
+    contiguous = (0, 100, 12, 0)             # 100 elements of 12 words, read in place
+    assert roofline.launch_work("bpp_mont_mul", (*contiguous, *contiguous, 0, 100, 12, None)) \
+        == (100 * 144, 100)
     assert roofline.fe_mul_mads(8) == 264 and roofline.fe_mul_mads(12) == 588

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +18,9 @@ import torch
 from bulletproofsplus_tpu.curves import curve_ops as jax_curve_ops
 from bulletproofsplus_tpu.fields import ALL_SPECS, field_ops
 from bulletproofsplus_tpu.fields.pallas_ops import mont_mul as pallas_mont_mul
-from bulletproofsplus_tpu_torch import convert
+from bulletproofsplus_tpu_torch import convert, kernels, roofline
 from bulletproofsplus_tpu_torch.curves import CURVE_NAMES, curve_ops
+from bulletproofsplus_tpu_torch.fields import field_kernels as fk
 from bulletproofsplus_tpu_torch.fields.mont_mul import (
     _norm16,
     _resolve,
@@ -35,6 +37,18 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ["fp", "fn"]
+
+
+@pytest.fixture(autouse=True)
+def release_jax_executables():
+    """Drop the JAX package's compiled programs after each test, as
+    test_torch_prove.py does: every XLA:CPU executable a jit cache keeps
+    holds about a dozen memory maps, and a worker that also runs the JAX
+    package's own tests nears the kernel's limit of 65,530 and crashes
+    inside jax's compile cache. The persistent compilation cache reloads
+    what a later test needs."""
+    yield
+    jax.clear_caches()
 
 
 def rand_ints(seed, count, p):
@@ -236,6 +250,131 @@ def test_wrappers_raise_off_cpu_without_cuda():
     a = f.encode([3, 4]).to("meta")
     with pytest.raises(ValueError):
         mont_mul(a, a, f.spec)
+
+
+def test_field_wrappers_raise_off_cpu_without_cuda():
+    """The field kernels' wrappers, and FieldOps over them, raise on a
+    device that is neither CPU nor CUDA; none falls back to its plain
+    version."""
+    f = curve_ops().fn
+    a = f.encode([3, 4]).to("meta")
+    for call in (lambda: fk.fe_add(a, a, f.spec), lambda: fk.fe_sub(a, a, f.spec),
+                 lambda: fk.fe_neg(a, f.spec), lambda: fk.fe_sum(a, f.spec),
+                 lambda: fk.fe_pow(a, f.p - 2, f.spec), lambda: f.add(a, a),
+                 lambda: f.sub(a, a), lambda: f.neg(a), lambda: f.sum(a), lambda: f.inv(a)):
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("curve", CURVE_NAMES)
+@pytest.mark.parametrize("which", FIELDS)
+@pytest.mark.parametrize("layout", ["leading", "inner"])
+def test_field_sum_matches_jax(which, curve, layout):
+    """FieldOps.sum over the leading axis of a 3-D tensor (the verifier's sum
+    over K proofs) and over an inner axis (the prover's sums over a row), at
+    an odd and a power-of-two length, against the JAX FieldOps.sum and
+    Python ints; values from [p/2, p) and p − 1 make every add carry."""
+    f, jf = pair(which, curve)
+    p = f.p
+    for length in (7, 8):
+        shape = (length, 3) if layout == "leading" else (2, length)
+        axis = 0 if layout == "leading" else 1
+        count = shape[0] * shape[1]
+        xs = (upper_half(20 + length, count - 2, p) + [p - 1, p - 1])
+        np.random.default_rng(length).shuffle(xs)
+        a = f.encode(xs).reshape(*shape, f.L)
+        ja = jnp.asarray(jf.encode(xs)).reshape(*shape, -1)
+        rows = np.array(xs, dtype=object).reshape(shape)
+        want = [int(v) % p for v in rows.sum(axis=axis)]
+        got = f.decode(f.sum(a, axis=axis))
+        assert got == jf.decode(jf.sum(ja, axis)) == want
+        assert torch.equal(fk.fe_sum(a, f.spec, axis), fk.fe_sum_plain(a, f.spec, axis))
+
+
+@pytest.mark.parametrize("curve", CURVE_NAMES)
+@pytest.mark.parametrize("which", FIELDS)
+def test_pow_const_and_inv_on_carry_edges(which, curve):
+    """pow_const and inv (Fermat, a^(p−2)) on carry-edge values (p − 1,
+    p − 2, long one and zero runs, 2^(32L) − 1 − p, values in [p/2, p))
+    at the field's width, against Python ints; a^0 = 1."""
+    f = pair(which, curve)[0]
+    p, R = f.p, 1 << (32 * f.L)
+    xs = sorted({v % p for v in carry_patterns(p, f.L)} - {0}
+                | {p - 1, p - 2, (R - 1 - p) % p} | set(upper_half(15, 6, p)))
+    a = f.encode(xs)
+    assert f.decode(f.inv(a)) == [pow(x, -1, p) for x in xs]
+    for e in (0, 1, 15, 16, 0xF0F0F):
+        assert f.decode(f.pow_const(a, e)) == [pow(x, e, p) for x in xs]
+    assert torch.equal(fk.fe_pow(a, p - 2, f.spec), f.plain.inv(a))
+
+
+def test_field_ops_on_cpu_never_launch(monkeypatch):
+    """On CPU tensors FieldOps runs the plain versions only: the exponent
+    stage of a tiny aggregated batch launches no kernel."""
+    from bulletproofsplus_tpu_torch.protocol.range import vinputs_multiple_batched
+
+    def refuse(name, *args, device):
+        raise AssertionError(f"{name} launched on CPU tensors")
+
+    monkeypatch.setattr(kernels, "launch", refuse)
+    f = curve_ops("secp256k1").fn
+    K, n, m = 2, 4, 2
+    logn = (n * m).bit_length() - 1
+    vals = rand_ints(30, K * (6 + logn), f.p)
+    one_each = [f.encode(vals[i * K:(i + 1) * K]) for i in range(6)]
+    ch = f.encode(vals[6 * K:]).reshape(K, logn, f.L)
+    y, z, e, r, s, d = one_each
+    out = vinputs_multiple_batched(f, n, m, y, z, ch, e, r, s, d)
+    assert [t.shape[0] for t in out] == [K] * 5
+
+
+def test_operand_descriptors_read_broadcasts():
+    """kernels.operand's (pointer, inner, s_inner, s_outer) reproduce each
+    broadcast view the field kernels read, stride-0 operands and slices
+    kept in place (no copy), against torch's own broadcast."""
+    L = 8
+    base = torch.arange(4 * 6 * L, dtype=torch.int32).reshape(4, 6, L)
+    full = (4, 6, L)
+    cases = [(base, full, True), (base[:, :1], full, True), (base[0, 0], full, True),
+             (base[:, 3:], (4, 3, L), True), (base[:, ::2], (4, 3, L), True),
+             (base.transpose(0, 1), (6, 4, L), True), (base[:1], full, True),
+             (base.reshape(2, 2, 6, L)[:, :, :1], (2, 2, 6, L), True),
+             (base[:, :, 1:5], (4, 6, 4), False)]
+    for t, shape, in_place in cases:
+        kept, ptr, inner, s_inner, s_outer = kernels.operand(t, shape)
+        assert (kept.data_ptr() == t.data_ptr()) == in_place
+        n = int(np.prod(shape[:-1]))
+        storage = kept.untyped_storage()
+        words = torch.tensor([], dtype=torch.int32).set_(storage)
+        start = (ptr - storage.data_ptr()) // 4
+        i = torch.arange(n)
+        offs = start + (i // inner) * s_outer + (i % inner) * s_inner
+        got = words[offs[:, None] + torch.arange(shape[-1])]
+        assert torch.equal(got, t.expand(*shape).reshape(n, shape[-1]))
+
+
+def test_every_entry_point_has_a_work_model():
+    """roofline.launch_work bounds every C entry point of kernels.SIGNATURES,
+    so chip_smoke.py and the profile script can bound any launch they
+    record; the field kernels' models count what their arguments say."""
+    import ctypes
+
+    by_type = {kernels._P: 0, kernels._LL: 4, kernels._I: 8}
+    for name, types in kernels.SIGNATURES.items():
+        args = tuple((ctypes.c_uint32 * 16)(*range(1, 17)) if t is kernels._U32P
+                     else by_type[t] for t in types)
+        nbytes, muls = roofline.launch_work(name, args)
+        assert nbytes > 0 and muls >= 0, name
+        assert roofline.bound([(name, args)])[0] > 0
+    # a (K, 1, 8) operand broadcast over (K, W, 8) is read once, K = 4, W = 6
+    bcast = (0, 6, 0, 8)
+    assert roofline.launch_work("bpp_fe_add", (0, 24, 8, 0, *bcast, 0, 24, 8, None)) == \
+        ((24 + 4 + 24) * 32, 0)
+    e = 0x10F                      # windows 1, 0, F: 14 + 2·4 squarings + 1 product
+    words = (ctypes.c_uint32 * 16)(e)
+    assert roofline.launch_work("bpp_fe_pow", (0, 0, 10, 12, words, 3, None)) == \
+        (10 * 2 * 48, 10 * (14 + 8 + 1))
+    assert roofline.launch_work("bpp_fe_sum", (0, 0, 2, 256, 5, 8, None)) == (2 * 257 * 5 * 32, 0)
 
 
 @pytest.mark.parametrize("montgomery", [True, False])
