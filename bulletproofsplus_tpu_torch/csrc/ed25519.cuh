@@ -58,6 +58,50 @@ __device__ __forceinline__ void pt_add(Pt4& R, const Pt4& P, const Pt4& Q, const
   fe_mul(R.T, e, h, M);
 }
 
+// R = P + Q by the four lanes of a quad (points.cuh, pt_add_quad), each
+// holding the same P and Q: pt_add's products in three rounds, (Y1 − X1)(Y2
+// − X2), (Y1 + X1)(Y2 + X2), T1·T2 and 2Z1·Z2 one a lane, then c = 2d·T1·T2
+// in every lane, then X3 = e·f, Y3 = g·h, Z3 = f·g, T3 = e·h one a lane.
+// R may alias P or Q.
+__device__ __forceinline__ void pt_add_quad(Pt4& R, const Pt4& P, const Pt4& Q,
+                                            const Pt4::Consts& K) {
+  const Mod<NL4>& M = K.fp;
+  const int r = threadIdx.x & 3;
+  uint32_t zero[NL4], u[NL4], v[NL4], su[NL4], ad[NL4], m[NL4];
+  fe_set_zero(zero);
+  // lane 0: Y − X, 1: Y + X, 2: T + 0, 3: Z + Z, for each of P and Q (Q's Z
+  // is not doubled)
+  fe_pick<NL4>(u, r, P.Y, P.Y, P.T, P.Z);
+  fe_pick<NL4>(v, r, P.X, P.X, zero, P.Z);
+  fe_sub(su, u, v, M);
+  fe_add(ad, u, v, M);
+  fe_pick<NL4>(u, r, su, ad, ad, ad);
+  fe_pick<NL4>(su, r, Q.Y, Q.Y, Q.T, Q.Z);
+  fe_pick<NL4>(ad, r, Q.X, Q.X, zero, zero);
+  fe_sub(m, su, ad, M);
+  fe_add(v, su, ad, M);
+  fe_pick<NL4>(v, r, m, v, v, v);
+  fe_mul(m, u, v, M);
+  uint32_t a[NL4], b[NL4], c[NL4], d[NL4];
+  fe_from_lane<NL4>(a, m, 0);
+  fe_from_lane<NL4>(b, m, 1);
+  fe_from_lane<NL4>(u, m, 2);
+  fe_from_lane<NL4>(d, m, 3);
+  fe_mul(c, u, K.k, M);
+  uint32_t e[NL4], f[NL4], g[NL4], h[NL4];
+  fe_sub(e, b, a, M);
+  fe_sub(f, d, c, M);
+  fe_add(g, d, c, M);
+  fe_add(h, b, a, M);
+  fe_pick<NL4>(u, r, e, g, f, e);
+  fe_pick<NL4>(v, r, f, h, g, h);
+  fe_mul(m, u, v, M);
+  fe_from_lane<NL4>(R.X, m, 0);
+  fe_from_lane<NL4>(R.Y, m, 1);
+  fe_from_lane<NL4>(R.Z, m, 2);
+  fe_from_lane<NL4>(R.T, m, 3);
+}
+
 // R = 2P, dbl-2008-hwcd (a = -1).  R may alias P.
 __device__ __forceinline__ void pt_dbl(Pt4& R, const Pt4& P, const Pt4::Consts& K) {
   const Mod<NL4>& M = K.fp;

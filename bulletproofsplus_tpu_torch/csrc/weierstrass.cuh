@@ -80,6 +80,68 @@ __device__ __forceinline__ void pt_add(Pt3<N>& R, const Pt3<N>& P, const Pt3<N>&
   fe_add(R.Z, v, t2, M);
 }
 
+// R = P + Q by the four lanes of a quad (points.cuh, pt_add_quad), each
+// holding the same P and Q: pt_add's 14 products in four rounds, one a lane
+// (X1X2, Y1Y2, Z1Z2, (X1 + Y1)(X2 + Y2); (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 +
+// Z2), b3·t2, 3t0·t3; b3·t5, t3·t1m, t1m·z3c, z3c·t4; t4·t5, t5·3t0).
+// R may alias P or Q.
+template <int N>
+__device__ __forceinline__ void pt_add_quad(Pt3<N>& R, const Pt3<N>& P, const Pt3<N>& Q,
+                                            const CurveConsts<N>& K) {
+  const Mod<N>& M = K.fp;
+  const int r = threadIdx.x & 3;
+  uint32_t u[N], v[N], m[N], w[N];
+  fe_add(w, P.X, P.Y, M);
+  fe_pick<N>(u, r, P.X, P.Y, P.Z, w);
+  fe_add(w, Q.X, Q.Y, M);
+  fe_pick<N>(v, r, Q.X, Q.Y, Q.Z, w);
+  fe_mul(m, u, v, M);
+  uint32_t t0[N], t1[N], t2[N], t3[N];
+  fe_from_lane<N>(t0, m, 0);
+  fe_from_lane<N>(t1, m, 1);
+  fe_from_lane<N>(t2, m, 2);
+  fe_from_lane<N>(t3, m, 3);
+  fe_sub(t3, t3, t0, M);   // t3 = (X1 + Y1)(X2 + Y2) - t0 - t1
+  fe_sub(t3, t3, t1, M);
+  uint32_t x3[N];          // 3·t0
+  fe_add(x3, t0, t0, M);
+  fe_add(x3, x3, t0, M);
+  fe_add(u, P.Y, P.Z, M);
+  fe_add(w, P.X, P.Z, M);
+  fe_pick<N>(u, r, u, w, K.k, x3);
+  fe_add(v, Q.Y, Q.Z, M);
+  fe_add(w, Q.X, Q.Z, M);
+  fe_pick<N>(v, r, v, w, t2, t3);
+  fe_mul(m, u, v, M);
+  uint32_t t4[N], t5[N], b2[N], z3[N];
+  fe_from_lane<N>(t4, m, 0);
+  fe_from_lane<N>(t5, m, 1);
+  fe_from_lane<N>(b2, m, 2);   // b3·t2
+  fe_from_lane<N>(z3, m, 3);   // 3t0·t3, Z3's second product
+  fe_sub(t4, t4, t1, M);   // t4 = (Y1 + Z1)(Y2 + Z2) - t1 - t2
+  fe_sub(t4, t4, t2, M);
+  fe_sub(t5, t5, t0, M);   // t5 = (X1 + Z1)(X2 + Z2) - t0 - t2
+  fe_sub(t5, t5, t2, M);
+  fe_add(t0, t1, b2, M);   // z3c = t1 + b3·t2
+  fe_sub(t1, t1, b2, M);   // t1m = t1 - b3·t2
+  fe_pick<N>(u, r, K.k, t3, t1, t0);
+  fe_pick<N>(v, r, t5, t1, t0, t4);
+  fe_mul(m, u, v, M);
+  uint32_t p1[N], p3[N], p5[N];
+  fe_from_lane<N>(t5, m, 0);   // b3·t5
+  fe_from_lane<N>(p1, m, 1);   // t3·t1m
+  fe_from_lane<N>(p3, m, 2);   // t1m·z3c
+  fe_from_lane<N>(p5, m, 3);   // z3c·t4
+  fe_pick<N>(u, r & 1, t4, t5, t4, t5);
+  fe_pick<N>(v, r & 1, t5, x3, t5, x3);
+  fe_mul(m, u, v, M);
+  fe_from_lane<N>(u, m, 0);    // t4·t5
+  fe_from_lane<N>(v, m, 1);    // t5·3t0
+  fe_sub(R.X, p1, u, M);
+  fe_add(R.Y, p3, v, M);
+  fe_add(R.Z, p5, z3, M);
+}
+
 // R = 2P, RCB algorithm 9 (a = 0), complete: 9 products.  R may alias P.
 template <int N>
 __device__ __forceinline__ void pt_dbl(Pt3<N>& R, const Pt3<N>& P, const CurveConsts<N>& K) {

@@ -20,12 +20,17 @@ so the kernels read coordinates and scalars at two widths.
   bound at the prover's 10^5-10^6 groups, latency-bound at the verifier's
   few thousand; see csrc/joint_ladder.cu.
 - K3 `sum_points_grouped` ← `_sum_points_call` (:475, pallas_call :553).
-  One block per group, a strided pass and a shared-memory tree in place of
-  the TPU's sequential revisiting of one output window.
+  A tree spread over the card in place of the TPU's sequential revisiting
+  of one output window: `sum_layout` gives many groups a segment of 1-128
+  threads each (strided runs, then shuffles), and a few groups many blocks
+  each, whose partials the last block of the group reduces in the same
+  launch; see csrc/sum_points.cu.
 - K4 `fixed_lookup_partials` ← `_fixed_lookup_call` (:269, pallas_call
-  :371). Bound by streaming the table (128, 96 or 144 B a lane); blocks write one
-  partial each, which K3 reduces, because Hopper blocks cannot carry an
-  accumulator across the grid the way the TPU's sequential grid does.
+  :371). Bound by its adds, one a lane (its table reads, 128, 96 or 144 B
+  a lane, weigh far less); the grid is the blocks the card holds at once,
+  each thread a long run of lanes, one partial a block, which K3 reduces,
+  because Hopper blocks cannot carry an accumulator across the grid the way
+  the TPU's sequential grid does; see csrc/fixed_lookup.cu.
 - K5 `ladder_scalar_mul` ← `_ladder_call` (:146, pallas_call :253). One
   thread per lane with its 16-entry table in shared memory; on the prover's
   256 lanes it is bound by the latency of one lane's ~334 dependent point
@@ -148,6 +153,26 @@ def sum_points_plain(curve, points):
     return points[:, 0]
 
 
+# threads of a K3 or K4 block (THREADS of csrc/sum_points.cu, fixed_lookup.cu)
+BLOCK = 128
+
+
+def sum_layout(G: int, W: int, resident: int) -> tuple:
+    """(seg, nblk, quads_first) of a K3 launch over G groups of W points,
+    where the card holds `resident` K3 blocks at once. A group takes a
+    segment of seg threads, the power of two (at most BLOCK) that leaves
+    each thread about two points. Fewer groups than a quarter of the
+    resident blocks spread over nblk blocks each, as many as the card leaves
+    a group and at most one for every 2·BLOCK points, so that one group
+    alone still fills the card. quads_first (csrc/points.cuh,
+    pt_segment_sum) takes the shorter chain where the launch leaves most of
+    the card idle and the cheaper reduction where it fills it."""
+    seg = min(BLOCK, 1 << max(0, (-(-W // 2) - 1).bit_length()))
+    if seg == BLOCK and 4 * G < resident:
+        return BLOCK, max(1, min(resident // G, -(-W // (2 * BLOCK)))), True
+    return seg, 1, 4 * -(-G * seg // BLOCK) < resident
+
+
 def sum_points_grouped(curve, points):
     """K3 wrapper: Σ over axis -3. points (..., W, C, L) → (..., C, L);
     leading axes are independent groups."""
@@ -163,10 +188,16 @@ def sum_points_grouped(curve, points):
     else:
         kernels = _cuda_ready("sum_points", (pts, torch.int32))
         pts = kernels.aligned(pts)
-        out = torch.empty((G, C, L), dtype=torch.int32, device=pts.device)
+        seg, nblk, quads_first = sum_layout(G, W, kernels.resident_blocks(
+            "bpp_sum_points", curve.FAMILY, pts.device)) if G else (1, 1, True)
+        # the G sums, then (nblk > 1) scratch: G·nblk partial points and G tickets
+        buf = torch.empty(G * C * L + (G * (nblk * C * L + 1) if nblk > 1 else 0),
+                          dtype=torch.int32, device=pts.device)
+        out = buf[:G * C * L].view(G, C, L)
         if G:
-            kernels.launch(f"bpp_sum_points_{curve.FAMILY}", pts.data_ptr(),
-                           out.data_ptr(), G, W, _consts_words(curve), device=pts.device)
+            kernels.launch(f"bpp_sum_points_{curve.FAMILY}", pts.data_ptr(), buf.data_ptr(),
+                           buf[G * C * L:].data_ptr() if nblk > 1 else 0, G, W, seg, nblk,
+                           int(quads_first), _consts_words(curve), device=pts.device)
             sum_points_grouped.launches += 1
     return out.reshape(*lead, C, L)
 
@@ -210,7 +241,8 @@ def fixed_lookup_partials(curve, table, digits, signed: bool):
     kernels = _cuda_ready("fixed_lookup", (table, torch.int32),
                           (digits, torch.int32))
     table, digits = kernels.aligned(table), digits.contiguous()
-    nblocks = max(1, min(1024, -(-lanes // 1024)))
+    nblocks = max(1, min(kernels.resident_blocks("bpp_fixed_lookup", curve.FAMILY,
+                                                 table.device), -(-lanes // BLOCK)))
     out = torch.empty((nblocks, curve.COORDS, curve.fp.L), dtype=torch.int32,
                       device=table.device)
     kernels.launch(f"bpp_fixed_lookup_{curve.FAMILY}", table.data_ptr(),
@@ -225,22 +257,17 @@ fixed_lookup_partials.launches = 0
 
 def fixed_digits(curve, scalars, nbits: int, signed: bool):
     """Plain-form scalars (N, S) → lane digits (nwin·N,) int32 in the table's
-    lane order (window-major), packed mag | neg<<8 when signed."""
+    lane order (window-major), packed mag | neg<<8 when signed. Unsigned
+    4-bit digits are the nibbles of the scalars' little-endian bytes, taken
+    in four launches."""
     fn = curve.fn
     if signed:
         mag, neg = fn.scalar_digits_signed(scalars, nbits, WINDOW)
         digits = mag | (neg.to(mag.dtype) << 8)
-    else:
-        nwin = -(-nbits // WINDOW)
-        digits = fn.scalar_digits(scalars, nwin * WINDOW, WINDOW)
-    return digits.t().contiguous().reshape(-1)
-
-
-def fixed_msm_kernel(curve, scalars, table, nbits: int, signed: bool):
-    """Fixed-base MSM Σ_i s_i·P_i over the table's N base points: K4 partials,
-    then K3 over the partials. scalars plain (N, S) → (C, L)."""
-    digits = fixed_digits(curve, scalars, nbits, signed)
-    return sum_points_grouped(curve, fixed_lookup_partials(curve, table, digits, signed))
+        return digits.t().contiguous().reshape(-1)
+    nwin = -(-nbits // WINDOW)
+    b = scalars.contiguous().view(torch.uint8)[:, :-(-nwin // 2)].t().to(torch.int32)
+    return torch.stack([b & 15, b >> 4], dim=1).reshape(-1, scalars.shape[0])[:nwin].reshape(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _POINT_SIGNATURES = {
     "bpp_joint_ladder": [_P, _P, _P, _LL, _I, _I, _U32P],
-    "bpp_sum_points": [_P, _P, _LL, _LL, _U32P],
+    "bpp_sum_points": [_P, _P, _P, _LL, _LL, _I, _I, _I, _U32P],
     "bpp_fixed_lookup": [_P, _P, _P, _LL, _I, _I, _U32P],
     "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
 }
@@ -63,8 +63,13 @@ SIGNATURES = {**_FIELD_SIGNATURES,
               **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
                  for fam in FAMILIES}}
 
+# point kernels whose entry point bpp_<kernel>_resident_<family>() gives the
+# blocks the card holds at once (kernels that size their grid to it)
+RESIDENT = ("bpp_sum_points", "bpp_fixed_lookup")
+
 _LIB = None
 _ENTRIES: dict = {}
+_RESIDENT: dict = {}
 BUILD_LOG = ""
 
 
@@ -139,6 +144,11 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [*args, _P]
             fn.restype = ctypes.c_int
+        for name in RESIDENT:
+            for fam in FAMILIES:
+                fn = getattr(lib, f"{name}_resident_{fam}")
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
         lib.bpp_error_string.argtypes = [ctypes.c_int]
         lib.bpp_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -189,6 +199,24 @@ def launch(name: str, *args, device) -> None:
     if err != 0:
         msg = library().bpp_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def resident_blocks(kernel: str, family: str, device) -> int:
+    """Blocks of point kernel `kernel` (one of RESIDENT) of `family` that
+    `device` holds at once: its SMs × the blocks an SM fits
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once a device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (kernel, family, index)
+    n = _RESIDENT.get(key)
+    if n is None:
+        if kernel not in RESIDENT or family not in FAMILIES:
+            raise ValueError(f"no resident-block query for {kernel}_{family}")
+        with torch.cuda.device(index):
+            n = getattr(library(), f"{kernel}_resident_{family}")()
+        if n < 1:
+            raise RuntimeError(f"{kernel}_{family}: occupancy query failed ({n})")
+        _RESIDENT[key] = n
+    return n
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Port of bulletproofsplus_tpu/msm/engine.py. Every MSM runs the J-way joint
 ladder (K2): consecutive groups of J (scalar, point) pairs share their
-doublings and give one point per group, then the grouped sum (K3) reduces
-the groups. J follows the lane count as in engine.py:241-262. The JAX
-package's width canonicalization and XLA scan ladder exist to bound TPU
-compile counts; PyTorch runs eagerly, so the port has one path.
+doublings and give one point per group (`msm_partials`), then the grouped
+sum (K3) reduces the groups. J follows the lane count as in
+engine.py:241-262. The JAX package's width canonicalization and XLA scan
+ladder exist to bound TPU compile counts; PyTorch runs eagerly, so the port
+has one path.
 
 Scalars are PLAIN-form (non-Montgomery) (..., N, S) limbs over the scalar
 field, S = curve.fn.L; points are (..., N, C, L) with C = curve.COORDS and
@@ -36,10 +37,10 @@ def tree_sum(curve, points):
     return sum_points_grouped(curve, points)
 
 
-def msm(curve, scalars, points, nbits: int | None = None):
-    """Σ_i scalars[i]·points[i] over axis -3; leading axes are independent
-    MSMs. Pads the pair axis to a multiple of J with zero scalars and
-    identity points."""
+def msm_partials(curve, scalars, points, nbits: int | None = None):
+    """The MSM's unreduced terms: K2's group outputs (..., ⌈N/J⌉, C, L),
+    whose sum over axis -3 is Σ_i scalars[i]·points[i]. Pads the pair axis
+    to a multiple of J with zero scalars and identity points."""
     nbits = nbits or curve.fn.order_bits
     lead = points.shape[:-3]
     W = points.shape[-3]
@@ -54,5 +55,10 @@ def msm(curve, scalars, points, nbits: int | None = None):
         scalars = torch.cat([scalars, scalars.new_zeros(*lead, W2 - W, S)], dim=-2)
         pad = curve.identity_like((*lead, W2 - W), points.device)
         points = torch.cat([points, pad], dim=-3)
-    prods = joint_ladder_msm_grouped(curve, scalars, points, nbits, J)
-    return tree_sum(curve, prods)
+    return joint_ladder_msm_grouped(curve, scalars, points, nbits, J)
+
+
+def msm(curve, scalars, points, nbits: int | None = None):
+    """Σ_i scalars[i]·points[i] over axis -3; leading axes are independent
+    MSMs: K3 over msm_partials."""
+    return tree_sum(curve, msm_partials(curve, scalars, points, nbits))

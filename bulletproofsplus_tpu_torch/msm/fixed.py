@@ -6,7 +6,8 @@ doublings of a ladder move into a one-time table
     T[k, j, i] = k · (2^(4j) · P_i)     k ∈ [0, 16), j ∈ [0, nwin)
 
 after which Σ_i s_i·P_i = Σ_i Σ_j T[d_ij, j, i], a lookup and one add per
-(window, point) lane (K4, then K3 over K4's partials). Signed tables hold
+(window, point) lane (K4, whose partial points `fixed_msm_partials` gives,
+then K3 over them). Signed tables hold
 entries k ∈ [1, 8] (half the memory) for balanced digits; negative digits
 negate the selected point and digit 0 selects the identity.
 
@@ -26,7 +27,12 @@ import os
 
 import torch
 
-from ..curves.cuda_curve import WINDOW, fixed_msm_kernel
+from ..curves.cuda_curve import (
+    WINDOW,
+    fixed_digits,
+    fixed_lookup_partials,
+    sum_points_grouped,
+)
 
 DEFAULT_MAX_BYTES = 7 * 1024**3
 
@@ -97,9 +103,17 @@ def precompute_tables_signed(curve, points, nbits: int | None = None):
     return torch.stack(T)
 
 
-def fixed_msm(curve, scalars, table, nbits: int | None = None):
-    """Σ_i scalars[i]·P_i over the table's base points; scalars plain (N, S).
-    The flavor follows the table's entry count (8 = signed)."""
+def fixed_msm_partials(curve, scalars, table, nbits: int | None = None):
+    """K4's partial points (P, C, L), whose sum is Σ_i scalars[i]·P_i over
+    the table's base points; scalars plain (N, S). The flavor follows the
+    table's entry count (8 = signed)."""
     nbits = nbits or curve.fn.order_bits
-    return fixed_msm_kernel(curve, scalars, table, nbits,
-                            signed=table.shape[0] == 1 << (WINDOW - 1))
+    signed = table.shape[0] == 1 << (WINDOW - 1)
+    return fixed_lookup_partials(curve, table, fixed_digits(curve, scalars, nbits, signed),
+                                 signed)
+
+
+def fixed_msm(curve, scalars, table, nbits: int | None = None):
+    """Σ_i scalars[i]·P_i over the table's base points: K3 over
+    fixed_msm_partials."""
+    return sum_points_grouped(curve, fixed_msm_partials(curve, scalars, table, nbits))

@@ -6,11 +6,12 @@ Port of bulletproofsplus_tpu/protocol/batch.py, homogeneous path
 weighting proof k by a random 128-bit w_k and summing keeps one MSM whose
 identity implies every term's, with overwhelming probability. The proofs
 share the pk generators, so their G/H/g/h exponents merge by field adds:
-the 2mn generator lanes run on fixed-base tables (K4 + K3) and only the
-K·(2·log2(mn)+m+3)+2 proof-specific lanes run the joint ladder (K2 + K3).
-When no table fits BPP_FIXED_BASE_MAX_BYTES (PublicKey.fixed_tables gives None),
-the generator lanes join the ladder's lanes, as in the JAX package
-(batch.py:187-192).
+the 2mn generator lanes run on fixed-base tables (K4) and only the
+K·(2·log2(mn)+m+3)+2 proof-specific lanes run the joint ladder (K2); one
+K3 launch sums the ladder's group outputs and K4's partial points together,
+so no point add runs between the two MSMs. When no table fits
+BPP_FIXED_BASE_MAX_BYTES (PublicKey.fixed_tables gives None), the generator
+lanes join the ladder's lanes, as in the JAX package (batch.py:187-192).
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import torch
 from torch.profiler import record_function
 
 from ..errors import VerificationError
-from ..msm import msm
-from ..msm.fixed import fixed_msm
+from ..msm import msm_partials, tree_sum
+from ..msm.fixed import fixed_msm_partials
 from .range import (
     ProofBatch,
     replay_batch,
@@ -66,10 +67,12 @@ def verify_stacked(curve, pk, n: int, m: int, batch: ProofBatch, V_all,
             var_s = torch.cat([var_s, gen_s])
             var_p = torch.cat([var_p, pk.G_vec[:mn], pk.H_vec[:mn]])
     with record_function("bpp::variable_msm"):
-        total = msm(curve, var_s, var_p)
+        parts = msm_partials(curve, var_s, var_p)
     if tables is not None:
         with record_function("bpp::fixed_msm"):
-            total = curve.add(total, fixed_msm(curve, gen_s, tables))
+            parts = torch.cat([parts, fixed_msm_partials(curve, gen_s, tables)])
+    with record_function("bpp::msm_sum"):
+        total = tree_sum(curve, parts)
     with record_function("bpp::identity_check"):
         return bool(curve.is_identity(total))
 

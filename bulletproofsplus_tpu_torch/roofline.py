@@ -100,7 +100,9 @@ def launch_work(name: str, args) -> tuple:
         return (G * J * (pt + SCALAR_BYTES) + G * pt,
                 ladder_muls(G, J, nwin, family))
     if name == "bpp_sum_points":
-        G, W = args[2:4]
+        # the work of the sum whatever its layout: the partials that a group
+        # spread over several blocks passes through scratch are not counted
+        G, W = args[3:5]
         return G * W * pt + G * pt, G * (W - 1) * add
     if name == "bpp_fixed_lookup":
         lanes, nblocks = args[3], args[5]

@@ -22,7 +22,10 @@ final line:
      K2 compared on its first 4,096), and time both;
   3. build PublicKey.new(n·m) and its fixed-base tables on the card, then
      hold K4 (fixed-base lookup) against its plain version on those tables
-     (unsigned) and on a smaller signed table;
+     (unsigned; its partial count printed) and on a smaller signed table,
+     K3 at the verify's tail shape (one group of K2's outputs above and
+     K4's partials: the one K3 of batch_verify's two MSMs) and fixed_msm
+     (K4, then K3 over its partials);
   4. batch-verify K = 256 statements (statement k is fixture proof k mod P,
      each with its own random weight: the MSM work of 256 proofs) with every
      launch counter at 0 before the run; the batch must accept and K1 (its
@@ -56,7 +59,8 @@ final line:
  10. prove and verify one m = 1 statement at n = 64.
 Last, it prints each curve's batch timings on their own lines, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
-kernel and shape held above: time, plain time, bound and launches), the
+kernel and shape held above: time through the wrapper, and for K1's family,
+K3 and K4 also from a CUDA graph; plain time, bound and launches), the
 card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
@@ -101,7 +105,7 @@ SOURCES = {**{k: (fname, "field_ops.cu", "fields/pallas_ops.py:369")
            "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
            "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
 VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
-                 "bpp::fixed_msm", "bpp::identity_check")
+                 "bpp::fixed_msm", "bpp::msm_sum", "bpp::identity_check")
 PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
                 "bpp::final_ab")
 TRACE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_trace.json")
@@ -414,7 +418,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     )
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
     from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
-    from bulletproofsplus_tpu_torch.msm.fixed import precompute_tables_signed
+    from bulletproofsplus_tpu_torch.msm.fixed import fixed_msm, precompute_tables_signed
     from bulletproofsplus_tpu_torch.protocol.range import (
         replay_batch,
         vinputs_multiple_batched,
@@ -459,7 +463,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     grp = ker[None]                                   # (1, G, C, L): the MSM's sum
     hold(held, (name, "K3", f"1 x {G} points"),
          lambda: cc.sum_points_grouped(curve, grp), lambda: cc.sum_points_plain(curve, grp),
-         affine_err(curve), 20)
+         affine_err(curve), 20, graph=True)
 
     # -- 3. public key, tables, K4 -----------------------------------------
     t = time.time()
@@ -471,10 +475,24 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     gen_s = fn.encode_plain([rnd.randrange(fn.p) for _ in range(2 * mn)], dev)
     dig = cc.fixed_digits(curve, gen_s, nbits, signed=False)
-    hold(held, (name, "K4", f"{dig.numel()} lanes"),
-         lambda: cc.fixed_lookup_partials(curve, tables, dig, False),
-         lambda: cc.fixed_lookup_plain(curve, tables, dig, False),
-         lambda ker, ref: affine_err(curve)(cc.sum_points_plain(curve, ker[None]), ref), 20)
+    nparts = cc.fixed_lookup_partials(curve, tables, dig, False).shape[0]
+    log(f"K4 writes {nparts} partial points for {dig.numel()} lanes")
+    parts = hold(held, (name, "K4", f"{dig.numel()} lanes, {nparts} partials"),
+                 lambda: cc.fixed_lookup_partials(curve, tables, dig, False),
+                 lambda: cc.fixed_lookup_plain(curve, tables, dig, False),
+                 lambda ker, ref: affine_err(curve)(cc.sum_points_plain(curve, ker[None]), ref),
+                 20, graph=True)
+    tail = torch.cat([ker, parts])[None]         # batch_verify's one K3 over both MSMs
+    hold(held, (name, "K3",
+                f"1 x {tail.shape[1]} points ({G} K2 outputs + {nparts} K4 partials)"),
+         lambda: cc.sum_points_grouped(curve, tail), lambda: cc.sum_points_plain(curve, tail),
+         affine_err(curve), 20, graph=True)
+    hold(held, (name, "K4", f"fixed_msm: K4 then K3 over its {nparts} partials, "
+                            f"{dig.numel()} lanes"),
+         lambda: fixed_msm(curve, gen_s, tables),
+         lambda: cc.fixed_lookup_plain(curve, tables, dig, False)[0], affine_err(curve), 20,
+         graph=True)
+    del ker, grp, parts, tail
     small = random_points(curve, 32, 11, dev)
     stab = precompute_tables_signed(curve, small)
     sdig = cc.fixed_digits(curve, gen_s[:32], nbits, signed=True)
@@ -607,7 +625,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         del cp, cs
     hold(held, (name, "K3", f"{lr.shape[0]} x {lr.shape[1]} points"),
          lambda: cc.sum_points_grouped(curve, lr), lambda: cc.sum_points_plain(curve, lr),
-         affine_err(curve), 20)
+         affine_err(curve), 20, graph=True)
     del lr_p, lr_s, lr
 
     # the bit commitments' points: h·α_k ‖ select(bits, G, −H)
@@ -615,7 +633,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     bc = torch.cat([h_alpha[:, None], curve.select(bits, Gv, curve.neg(Hv))], dim=1)
     hold(held, (name, "K3", f"{bc.shape[0]} x {bc.shape[1]} points"),
          lambda: cc.sum_points_grouped(curve, bc), lambda: cc.sum_points_plain(curve, bc),
-         affine_err(curve), 20)
+         affine_err(curve), 20, graph=True)
     del bc
 
     # -- 8. the fixture's statements, proven on the card ----------------------
@@ -771,8 +789,9 @@ def main() -> int:
             # powers mod p on 8- or 12-word limbs, or point ladders and sums
             # on any curve family
             "library_ms": None}
-        if k in JAX_COUNTERPARTS:
+        if g_ms is not None:
             row["graph_ms"] = g_ms
+        if k in JAX_COUNTERPARTS:
             row["jax_counterpart"] = f"bulletproofsplus_tpu/{JAX_COUNTERPARTS[k]}"
         report.append(row)
     for line in lines:

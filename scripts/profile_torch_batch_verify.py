@@ -8,7 +8,8 @@ the fixture batch (as chip_smoke.py does); --prove batch-proves bench.py's K
 statements (v = (7k + 3i + 2) mod 2^n, γ = 2i + k + 3, committed by
 chip_smoke.py's host running sums) in the deterministic mode. Either runs 3 times warm, then once under torch.profiler, and prints,
 per stage range (protocol/batch.py: bpp::exponents, bpp::rlc_merge,
-bpp::variable_msm, bpp::fixed_msm, bpp::identity_check; protocol/batchprove.py
+bpp::variable_msm, bpp::fixed_msm, bpp::msm_sum, bpp::identity_check;
+protocol/batchprove.py
 and wip.py: bpp::bit_commitment, bpp::prove_setup, bpp::fold_round summed over
 the rounds, bpp::final_ab), its host wall time and the device time of the
 kernels it launched; the device busy share of the whole run; the top kernels

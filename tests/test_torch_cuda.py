@@ -22,7 +22,13 @@ from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
 from bulletproofsplus_tpu_torch.fields import field_kernels as fk
 from bulletproofsplus_tpu_torch.fields.mont_mul import mont_mul, mont_mul_plain
-from bulletproofsplus_tpu_torch.msm.fixed import precompute_tables, precompute_tables_signed
+from bulletproofsplus_tpu_torch.msm import msm, msm_partials, tree_sum
+from bulletproofsplus_tpu_torch.msm.fixed import (
+    fixed_msm,
+    fixed_msm_partials,
+    precompute_tables,
+    precompute_tables_signed,
+)
 
 pytestmark = pytest.mark.cuda
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -202,6 +208,68 @@ def test_k4_kernel_matches_plain(dev, c, signed):
     got = cc.sum_points_plain(c, parts[None])
     assert c.decode_points(got) == c.decode_points(
         cc.fixed_lookup_plain(c, table, dig, signed))
+
+
+@pytest.mark.parametrize("W", [1, 2, 255, 257, 9185])
+def test_k3_kernel_one_group(dev, c, W):
+    """The verifier's one-group shape, spread over one segment (W ≤ 256) or
+    over several blocks whose last block sums their partials."""
+    P = points(c, W, W + 1, dev)[None]
+    before = cc.sum_points_grouped.launches
+    got = cc.sum_points_grouped(c, P)
+    assert cc.sum_points_grouped.launches == before + 1
+    assert c.decode_points(got) == c.decode_points(cc.sum_points_plain(c, P))
+
+
+def test_k3_kernel_many_groups(dev, c):
+    """The prover's 512 × 257 shape (round 0's L and R sums at
+    edwards25519), from 1,024 distinct points with identities among them."""
+    base = points(c, 1024, 9, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    P = base[torch.randint(0, 1024, (512 * 257,), generator=gen, device=dev)]
+    P[::97] = c.identity(dev)
+    P = P.reshape(512, 257, c.COORDS, c.fp.L)
+    assert c.decode_points(cc.sum_points_grouped(c, P)) == c.decode_points(
+        cc.sum_points_plain(c, P))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("npts,nbits,zero", [(24, 16, False), (37, None, False),
+                                             (1000, None, False), (37, None, True)])
+def test_k4_kernel_lane_counts(dev, c, signed, npts, nbits, zero):
+    """K4 with fewer lanes than one block (24 points × 4 windows), lane
+    counts that are no multiple of the grid's threads, more lanes than the
+    card's resident threads (1,000 points × 64 windows), and every digit
+    zero (the identity of either flavor)."""
+    rnd = random.Random(npts)
+    nbits = nbits or c.fn.order_bits
+    P = points(c, npts, 6, dev)
+    table = (precompute_tables_signed if signed else precompute_tables)(c, P, nbits)
+    s = c.fn.encode_plain([0 if zero else rnd.randrange(c.fn.p) % (1 << nbits)
+                           for _ in range(npts)], dev)
+    dig = cc.fixed_digits(c, s, nbits, signed)
+    assert (dig.numel() < cc.BLOCK) == (npts == 24)
+    parts = cc.fixed_lookup_partials(c, table, dig, signed)
+    want = cc.fixed_lookup_plain(c, table, dig, signed)
+    assert c.decode_points(cc.sum_points_plain(c, parts[None])) == c.decode_points(want)
+    if zero:
+        assert c.decode_points(want) == [None]
+
+
+def test_verify_tail_one_k3(dev, c):
+    """One K3 over K2's group outputs and K4's partials equals msm +
+    fixed_msm, as the batch verifier's tail computes it."""
+    rnd = random.Random(8)
+    P, Q = points(c, 300, 12, dev), points(c, 200, 13, dev)
+    s = c.fn.encode_plain([rnd.randrange(c.fn.p) for _ in range(300)], dev)
+    t = c.fn.encode_plain([rnd.randrange(c.fn.p) for _ in range(200)], dev)
+    table = precompute_tables(c, Q)
+    parts = torch.cat([msm_partials(c, s, P), fixed_msm_partials(c, t, table)])
+    before = cc.sum_points_grouped.launches
+    got = tree_sum(c, parts)
+    assert cc.sum_points_grouped.launches == before + 1
+    assert c.decode_point(got) == c.decode_point(c.add(msm(c, s, P), fixed_msm(c, t, table)))
 
 
 def read_fixture(c):

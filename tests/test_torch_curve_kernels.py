@@ -37,10 +37,11 @@ from bulletproofsplus_tpu_torch import PublicKey, convert
 from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
 from bulletproofsplus_tpu_torch.curves import curve_ops
-from bulletproofsplus_tpu_torch.msm import msm, scalar_mul, tree_sum
+from bulletproofsplus_tpu_torch.msm import msm, msm_partials, scalar_mul, tree_sum
 from bulletproofsplus_tpu_torch.msm.fixed import (
     fixed_base_mode,
     fixed_msm,
+    fixed_msm_partials,
     precompute_tables,
     precompute_tables_signed,
     table_bytes,
@@ -186,6 +187,52 @@ def test_msm_and_scalar_mul_match_golden(curves):
     assert c.decode_point(msm(c, s, P)) == want
     assert c.decode_points(scalar_mul(c, s[:2], P[:2])) == [
         gc.mul(p, k) for k, p in zip(ks[:2], pts[:2])]
+
+
+def test_partials_reduce_to_golden_msm(curves):
+    """msm_partials (K2's group outputs) and fixed_msm_partials (K4's
+    partials, both table flavors), each reduced by tree_sum and both in one
+    tree_sum as the verifier's tail does, equal golden's MSMs; the unsigned
+    lane digits, read as nibbles, equal the scalars' 4-bit windows."""
+    c, _, gc = curves
+    ks, fks = scalars(50, 7), scalars(51, 6)
+    pts, fpts = golden_points(gc, 7, 4), golden_points(gc, 6, 20)
+    s = c.fn.encode_plain(fks)
+    for nbits in (NBITS, 15, c.fn.order_bits):     # nibble digits = the window digits
+        nwin = -(-nbits // 4)
+        assert torch.equal(cc.fixed_digits(c, s, nbits, False),
+                           c.fn.scalar_digits(s, 4 * nwin).t().reshape(-1))
+    var = msm_partials(c, c.fn.encode_plain(ks), c.encode_points(pts), NBITS)
+    assert var.shape == (4, c.COORDS, c.fp.L)              # J = 2: 7 pairs pad to 8
+    assert c.decode_point(tree_sum(c, var)) == golden_msm(gc, ks, pts)
+    for build in (precompute_tables, precompute_tables_signed):
+        table = build(c, c.encode_points(fpts), NBITS)
+        fixed = fixed_msm_partials(c, c.fn.encode_plain(fks), table, NBITS)
+        assert c.decode_point(tree_sum(c, fixed)) == golden_msm(gc, fks, fpts)
+        both = tree_sum(c, torch.cat([var, fixed]))
+        assert c.decode_point(both) == gc.add(golden_msm(gc, ks, pts), golden_msm(gc, fks, fpts))
+
+
+@pytest.mark.parametrize("G,W,resident", [(1, 1, 264), (1, 9185, 264), (1, 1777, 528),
+                                          (512, 257, 528), (256, 1025, 528), (7, 5, 264),
+                                          (40, 70, 396), (3, 600, 30)])
+def test_sum_layout_and_its_work(G, W, resident):
+    """K3's layout covers each group with a power-of-two segment of a
+    128-thread block, or with several blocks only where the card has room;
+    and roofline.launch_work reads the same work from the launch whatever
+    the layout: G·(W − 1) adds and G·W points read, G written."""
+    from bulletproofsplus_tpu_torch import roofline
+
+    seg, nblk, quads_first = cc.sum_layout(G, W, resident)
+    assert seg & (seg - 1) == 0 and 1 <= seg <= cc.BLOCK and nblk >= 1
+    assert 2 * seg >= W or seg == cc.BLOCK                  # about two points a thread
+    assert nblk == 1 or (seg == cc.BLOCK and G * nblk <= resident and quads_first
+                         and 2 * cc.BLOCK * (nblk - 1) < W)
+    assert (nblk > 1) <= (4 * G < resident)               # only few groups spread
+    for family, (add, _, _, pt) in roofline.FAMILIES.items():
+        args = (0, 0, 0, G, W, seg, nblk, int(quads_first), None)
+        assert roofline.launch_work(f"bpp_sum_points_{family}", args) == \
+            (G * W * pt + G * pt, G * (W - 1) * add)
 
 
 def test_fixed_base_mode_budget(curves):

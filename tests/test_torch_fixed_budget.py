@@ -55,9 +55,9 @@ def test_over_budget_runs_generators_on_the_ladder(proven, monkeypatch):
     monkeypatch.setenv("BPP_FIXED_BASE_MAX_BYTES", "1")
 
     def no_fixed_msm(*args, **kwargs):
-        raise AssertionError("fixed_msm called above the table budget")
+        raise AssertionError("fixed_msm_partials called above the table budget")
 
-    monkeypatch.setattr(batch_mod, "fixed_msm", no_fixed_msm)
+    monkeypatch.setattr(batch_mod, "fixed_msm_partials", no_fixed_msm)
     pk = verify(c, proofs, V)
     assert pk._fb_tables == {}
     assert pk.fixed_tables(N * M) is None
