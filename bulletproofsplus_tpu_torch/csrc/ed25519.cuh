@@ -125,6 +125,40 @@ __device__ __forceinline__ void pt_dbl(Pt4& R, const Pt4& P, const Pt4::Consts& 
   fe_mul(R.T, e, h, M);
 }
 
+// R = 2P by the four lanes of a quad (points.cuh, pt_add_quad), each
+// holding the same P: pt_dbl's products in two rounds, X·X, Y·Y, Z·Z and
+// (X + Y)·(X + Y) one a lane, then X3 = e·f, Y3 = g·h, Z3 = f·g, T3 = e·h
+// one a lane. R lands in all four lanes, equal word for word to pt_dbl's.
+// R may alias P.
+__device__ __forceinline__ void pt_dbl_quad(Pt4& R, const Pt4& P, const Pt4::Consts& K) {
+  const Mod<NL4>& M = K.fp;
+  const int r = threadIdx.x & 3;
+  uint32_t u[NL4], v[NL4], m[NL4];
+  fe_add(v, P.X, P.Y, M);
+  fe_pick<NL4>(u, r, P.X, P.Y, P.Z, v);
+  fe_mul(m, u, u, M);
+  uint32_t a[NL4], b[NL4], zz[NL4], t[NL4];
+  fe_from_lane<NL4>(a, m, 0);
+  fe_from_lane<NL4>(b, m, 1);
+  fe_from_lane<NL4>(zz, m, 2);
+  fe_from_lane<NL4>(t, m, 3);
+  uint32_t c[NL4], e[NL4], f[NL4], g[NL4], h[NL4];
+  fe_add(c, zz, zz, M);
+  fe_sub(g, b, a, M);
+  fe_sub(e, t, a, M);
+  fe_sub(e, e, b, M);
+  fe_sub(f, g, c, M);
+  fe_add(h, a, b, M);
+  fe_neg(h, h, M);
+  fe_pick<NL4>(u, r, e, g, f, e);
+  fe_pick<NL4>(v, r, f, h, g, h);
+  fe_mul(m, u, v, M);
+  fe_from_lane<NL4>(R.X, m, 0);
+  fe_from_lane<NL4>(R.Y, m, 1);
+  fe_from_lane<NL4>(R.Z, m, 2);
+  fe_from_lane<NL4>(R.T, m, 3);
+}
+
 // P = -P: (-X, Y, Z, -T).
 __device__ __forceinline__ void pt_neg(Pt4& P, const Pt4::Consts& K) {
   fe_neg(P.X, P.X, K.fp);

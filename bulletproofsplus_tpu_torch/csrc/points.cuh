@@ -94,14 +94,15 @@ __device__ __forceinline__ void pt_from_shared(P& Q, const uint32_t* sh, int str
     for (int l = 0; l < P::NL; ++l) Q.coord(c)[l] = sh[(c * P::NL + l) * stride + i];
 }
 
-// -- one add by the four lanes of a quad ---------------------------------------
+// -- one add or doubling by the four lanes of a quad ---------------------------
 // pt_add_quad (ed25519.cuh, weierstrass.cuh) computes R = P + Q with the
 // four lanes of an aligned quad of a warp, each holding the same P and Q: a
 // round gives each lane one of the add's Montgomery products, and shuffles
 // hand every lane the four products, so the add's dependent chain is 3
-// (Edwards) or 4 (Weierstrass) products instead of 9 or 14. R lands in all
-// four lanes, equal word for word to pt_add's. Every lane of the warp calls
-// it. These are the helpers.
+// (Edwards) or 4 (Weierstrass) products instead of 9 or 14. pt_dbl_quad
+// does the same for R = 2P: 2 or 3 products instead of 8 or 9. R lands in
+// all four lanes, equal word for word to pt_add's or pt_dbl's. Every lane
+// of the warp calls them. These are the helpers.
 
 // r = the operand of this lane's role (0-3) among four.
 template <int N>

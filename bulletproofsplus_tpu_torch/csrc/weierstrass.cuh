@@ -167,6 +167,49 @@ __device__ __forceinline__ void pt_dbl(Pt3<N>& R, const Pt3<N>& P, const CurveCo
   fe_add(R.X, xy, xy, M);
 }
 
+// R = 2P by the four lanes of a quad (points.cuh, pt_add_quad), each
+// holding the same P: pt_dbl's 9 products in three rounds, one a lane (Y·Y,
+// Y·Z, Z·Z, X·Y; b3·t2 and t1·z3 on lanes 0 and 1, lanes 2 and 3 repeating
+// them; t2b·z3, t0m·y3c, t0m·xy on lanes 0-2, lane 3 repeating the last).
+// R lands in all four lanes, equal word for word to pt_dbl's. R may alias P.
+template <int N>
+__device__ __forceinline__ void pt_dbl_quad(Pt3<N>& R, const Pt3<N>& P,
+                                            const CurveConsts<N>& K) {
+  const Mod<N>& M = K.fp;
+  const int r = threadIdx.x & 3;
+  uint32_t u[N], v[N], m[N];
+  fe_pick<N>(u, r, P.Y, P.Y, P.Z, P.X);
+  fe_pick<N>(v, r, P.Y, P.Z, P.Z, P.Y);
+  fe_mul(m, u, v, M);
+  uint32_t t0[N], t1[N], t2[N], xy[N], z3[N];
+  fe_from_lane<N>(t0, m, 0);
+  fe_from_lane<N>(t1, m, 1);
+  fe_from_lane<N>(t2, m, 2);
+  fe_from_lane<N>(xy, m, 3);
+  fe_add(z3, t0, t0, M);   // z3 = 8·t0
+  fe_add(z3, z3, z3, M);
+  fe_add(z3, z3, z3, M);
+  fe_pick<N>(u, r & 1, K.k, t1, K.k, t1);
+  fe_pick<N>(v, r & 1, t2, z3, t2, z3);
+  fe_mul(m, u, v, M);
+  fe_from_lane<N>(t2, m, 0);   // t2b = b3·t2
+  fe_from_lane<N>(t1, m, 1);   // Z3 = t1·z3
+  uint32_t y3[N];
+  fe_add(y3, t0, t2, M);   // y3c = t0 + t2b
+  fe_add(u, t2, t2, M);    // t0m = t0 - 3·t2b
+  fe_add(u, u, t2, M);
+  fe_sub(t0, t0, u, M);
+  fe_pick<N>(u, r, t2, t0, t0, t0);
+  fe_pick<N>(v, r, z3, y3, xy, xy);
+  fe_mul(m, u, v, M);
+  fe_from_lane<N>(z3, m, 0);   // x3m = t2b·z3
+  fe_from_lane<N>(y3, m, 1);   // t0m·y3c
+  fe_from_lane<N>(xy, m, 2);   // t0m·xy
+  fe_add(R.Y, z3, y3, M);  // Y3 = x3m + t0m·y3c
+  fe_add(R.X, xy, xy, M);  // X3 = 2·t0m·xy
+  fe_copy(R.Z, t1);
+}
+
 // P = -P: (X, -Y, Z).
 template <int N>
 __device__ __forceinline__ void pt_neg(Pt3<N>& P, const CurveConsts<N>& K) {

@@ -31,11 +31,13 @@ so the kernels read coordinates and scalars at two widths.
   each thread a long run of lanes, one partial a block, which K3 reduces,
   because Hopper blocks cannot carry an accumulator across the grid the way
   the TPU's sequential grid does; see csrc/fixed_lookup.cu.
-- K5 `ladder_scalar_mul` ← `_ladder_call` (:146, pallas_call :253). One
-  thread per lane with its 16-entry table in shared memory; on the prover's
-  256 lanes it is bound by the latency of one lane's ~334 dependent point
-  ops; see csrc/ladder.cu. It computes K2 at J = 1 in the same order, but
-  keeps its own entry point and launch count.
+- K5 `ladder_scalar_mul` ← `_ladder_call` (:146, pallas_call :253). The
+  four threads of a quad run one lane, each with its copy of the 16-entry
+  table in shared memory; on the prover's 256 lanes it is bound by the
+  latency of one lane's ~334 dependent point ops, which quad doublings and
+  quad adds (one product a thread a round) cut to 2-4 product rounds each;
+  see csrc/ladder.cu. It computes K2 at J = 1 in the same order, but keeps
+  its own entry point and launch count.
 
 Tables are entry-major (nent, lanes, C, L) for both versions, where a lane
 is a (window, point) pair, lane = window·N + point.

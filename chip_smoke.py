@@ -36,10 +36,12 @@ final line:
      edwards25519 the exponent vectors of two proofs must equal those of
      the plain (CPU) path;
   7. hold the prover's kernels against their plain versions at its shapes:
-     K5 (per-lane ladder; 256 lanes at the group order's width, with a zero
-     scalar and the identity), K2 at J = 2 on K·mn groups (round 0's
-     generator fold) and at J = 4 on 2K·(mn + 4)/4 groups (round 0's L/R,
-     zero-scalar identity padding included), K3 over 2K × (mn + 4)/4 points
+     K5 (per-lane ladder, four threads a lane; 256 lanes at the group
+     order's width, with a zero scalar and the identity, then its first 37
+     lanes and one lane, a single prove's h·α), K2 at J = 2 on K·mn
+     groups (round 0's generator fold) and at J = 4 on 2K·(mn + 4)/4
+     groups (round 0's L/R, zero-scalar identity padding included), K3
+     over 2K × (mn + 4)/4 points
      (L/R's sums) and K × (mn + 1) points (the bit commitments), on the
      key's generators with seeded random scalars and bits; K2 is timed at
      its full shape and compared on its first 16,384 groups; and K2 at J = 2
@@ -60,7 +62,7 @@ final line:
 Last, it prints each curve's batch timings on their own lines, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
-K3 and K4 also from a CUDA graph; plain time, bound and launches), the
+K3, K4 and K5 also from a CUDA graph; plain time, bound and launches), the
 card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
@@ -566,7 +568,15 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     s5 = fn.encode_plain([0] + [rnd.randrange(fn.p) for _ in range(K_BATCH - 1)], dev)
     h_alpha = hold(held, (name, "K5", f"{K_BATCH} lanes, {nbits} bits"),
                    lambda: cc.ladder_scalar_mul(curve, s5, pts5, nbits),
-                   lambda: cc.ladder_plain(curve, s5, pts5, nbits), coord_err(fp), 20)
+                   lambda: cc.ladder_plain(curve, s5, pts5, nbits), coord_err(fp), 20,
+                   graph=True)
+    # lanes off a multiple of 8 (a warp's quads partly copies of the last
+    # lane), and one lane with a random scalar: a single prove's h·α
+    for lo, hi in ((0, 37), (2, 3)):
+        hold(held, (name, "K5", f"{hi - lo} lanes, {nbits} bits"),
+             lambda: cc.ladder_scalar_mul(curve, s5[lo:hi], pts5[lo:hi], nbits),
+             lambda: cc.ladder_plain(curve, s5[lo:hi], pts5[lo:hi], nbits), coord_err(fp), 20,
+             graph=True)
 
     half = mn // 2
     Gv, Hv = pk.G_vec, pk.H_vec

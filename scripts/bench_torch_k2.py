@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time K1-K4 (the Montgomery product, the joint ladder, the grouped point
-sum and the fixed-base lookup) of two or more checkouts of the port side by
-side on one CUDA card.
+"""Time K1-K5 (the Montgomery product, the joint ladder, the grouped point
+sum, the fixed-base lookup and the per-lane ladder) of two or more checkouts
+of the port side by side on one CUDA card.
 
 A variant is `LABEL=TREE`, the root of a checkout. Each tree's kernel
 library builds from its own sources into its own
@@ -31,23 +31,31 @@ seeded inputs, through the wrappers a user calls:
 - K4 (`fixed_lookup_partials`) at the verify's generator lanes (2mn × the
   windows of an unsigned table, random digits, table entries drawn from the
   same points), and K4 then K3 over its partials (`fixed_msm`'s kernels).
+- K5 (`ladder_scalar_mul`) at the prover's K = 256 lanes and at one lane
+  (a single prove), points drawn as for K2, scalars chip_smoke.random_scalars
+  at the group order's width. Mean of 20 launches after a warm-up, through
+  the wrapper (ms) and from a CUDA graph (graph_ms).
 
-K1 and K2 outputs must equal the first run's word for word (the trees
+K1, K2 and K5 outputs must equal the first run's word for word (the trees
 compute the same operations in the same order). K3 and K4 may add in
 another order, so their outputs (K4's partials summed by the plain K3)
 must equal the first run's as affine points. A difference fails the run.
 Prints the card (nvidia-smi name and power limit), the latency of one
-dependent point add a family (scripts/bench_torch_pt_add.cu built from
-this checkout's csrc/: one warp, `--add-reps` adds a thread, checked against
-the host curve), then one JSON line a kernel and shape: each label's ms (one
-a turn) and their mean, registers and spill bytes (ptxas -v, from the
-tree's build/build.log), the shape's bound
-(bulletproofsplus_tpu_torch/roofline.py), and for a one-group K3 its
-latency floor, ⌈log2 W⌉ dependent adds. To time the parent commit beside
-the working tree, unpack it into the git-ignored checkout_copy/ first:
+dependent point operation a family and kind (pt_add, pt_dbl, pt_add_quad,
+pt_dbl_quad; scripts/bench_torch_pt_add.cu built from this checkout's
+csrc/: one warp, each quad one chain of `--add-reps` operations, checked
+against the host curve, and each quad kind's output against its single
+kind's word for word), then one JSON line a kernel and shape: each label's
+ms (one a turn) and their mean, registers and spill bytes (ptxas -v, from
+the tree's build/build.log), the shape's bound
+(bulletproofsplus_tpu_torch/roofline.py), for a one-group K3 its latency
+floor, ⌈log2 W⌉ dependent adds, and for K5 its latency floor,
+nwin·(4·t_dbl_quad + t_add_quad) + 14·t_add_quad (one lane's chain of
+quad operations). To time the parent commit beside the working tree,
+unpack it into the git-ignored checkout_copy/ first:
 
     mkdir -p checkout_copy/parent && git archive HEAD | tar -x -C checkout_copy/parent
-    python3 scripts/bench_torch_k2.py parent=checkout_copy/parent new=. [--kernels K3,K4]
+    python3 scripts/bench_torch_k2.py parent=checkout_copy/parent new=. [--kernels K3,K4,K5]
 """
 from __future__ import annotations
 
@@ -69,9 +77,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DISTINCT_POINTS = 4096
 K1_REPS = 20
-SUM_REPS = 20       # K3 and K4 launches timed a turn
+SUM_REPS = 20       # K3, K4 and K5 launches timed a turn
 ADD_SOURCE = os.path.join(ROOT, "scripts", "bench_torch_pt_add.cu")
 ADD_THREADS = 32
+OP_KINDS = ("pt_add", "pt_dbl", "pt_add_quad", "pt_dbl_quad")   # bench_torch_pt_add.cu's kinds
+K5_LANES = (256, 1)
 
 
 def chip_smoke():
@@ -144,6 +154,14 @@ def worker(tree: str, curves: list, reps: int, kinds: list, device: str = "cuda:
             return base[torch.randint(0, DISTINCT_POINTS, (count,), generator=gen, device=dev)]
 
         shapes = cs.k2_shapes(n, m)
+        if "K5" in kinds:
+            nbits = curve.fn.order_bits
+            for lanes in K5_LANES:
+                pts, scal = draw(lanes), cs.random_scalars(lanes, gen, dev)
+                timed(["K5", name, f"{lanes} lanes, {nbits} bits"], ["K5", curve.FAMILY],
+                      lambda: cc.ladder_scalar_mul(curve, scal, pts, nbits), SUM_REPS,
+                      graph=True, nwin=-(-nbits // cc.WINDOW))
+                del pts, scal
         if "K2" in kinds:
             for J, G in shapes:
                 pts, scal = draw(G * J), cs.random_scalars(G * J, gen, dev)
@@ -197,9 +215,9 @@ def worker(tree: str, curves: list, reps: int, kinds: list, device: str = "cuda:
         del outs, parts
 
 
-def add_chain(curves: list, reps: int, device: str = "cuda:0") -> None:
-    """The latency of one dependent point add a family, from this
-    checkout's csrc/: one JSON line a curve."""
+def op_chains(curves: list, reps: int, device: str = "cuda:0") -> None:
+    """The latency of one dependent point operation a family and kind, from
+    this checkout's csrc/: one JSON line a curve and kind."""
     from bulletproofsplus_tpu_torch import kernels
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
     from bulletproofsplus_tpu_torch.curves import curve_ops
@@ -211,7 +229,7 @@ def add_chain(curves: list, reps: int, device: str = "cuda:0") -> None:
     fams = {curve_ops(name).FAMILY: name for name in curves}
 
     def build_one(fam):
-        so = os.path.join(kernels.BUILD_DIR, f"libbpp_add_chain_{fam}.so")
+        so = os.path.join(kernels.BUILD_DIR, f"libbpp_op_chain_{fam}.so")
         res = subprocess.run([nvcc, *kernels.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                               "-Xcompiler", "-fPIC", f"-DBPP_FAMILY={kernels.FAMILIES.index(fam)}",
                               "-I", kernels.SRC_DIR, ADD_SOURCE, "-o", so],
@@ -222,36 +240,46 @@ def add_chain(curves: list, reps: int, device: str = "cuda:0") -> None:
 
     with ThreadPoolExecutor(len(fams)) as pool:
         libs = dict(pool.map(build_one, fams))
+    ok = True
     for fam, name in fams.items():
         curve = curve_ops(name)
         lib = ctypes.CDLL(libs[fam])
-        fn = getattr(lib, f"bpp_add_chain_{fam}")
+        fn = getattr(lib, f"bpp_op_chain_{fam}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
-        pts = cs.random_points(curve, 2 * ADD_THREADS, 5, dev)
-        out = torch.empty((ADD_THREADS, curve.COORDS, curve.fp.L), dtype=torch.int32,
-                          device=dev)
-
-        def run(n):
-            err = fn(pts.data_ptr(), out.data_ptr(), ADD_THREADS, n, cc._consts_words(curve),
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"bpp_add_chain_{fam}: CUDA error {err}")
-
-        ms = {n: cs.cuda_ms(lambda: run(n), 5) for n in (0, reps)}
-        run(reps)
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p]
+        pts = cs.random_points(curve, ADD_THREADS // 2, 5, dev)
         hc = curve.host
         A = [hc.lift(p) for p in curve.decode_points(pts)]
-        want = hc.to_affine([hc.add(A[2 * i], hc.mul(A[2 * i + 1], reps))
-                             for i in range(ADD_THREADS)])
-        ok = curve.decode_points(out) == want
-        print(json.dumps({"kernel": "pt_add", "curve": name, "family": fam,
-                          "threads": ADD_THREADS, "reps": reps, "ms_at_0": ms[0],
-                          "ms_at_reps": ms[reps],
-                          "us_per_add": (ms[reps] - ms[0]) / reps * 1e3, "check": ok}),
-              flush=True)
-        if not ok:
-            raise AssertionError(f"add chain of {name} disagrees with the host curve")
+        quads = range(ADD_THREADS // 4)
+        want = {"pt_add": hc.to_affine([hc.add(A[2 * q], hc.mul(A[2 * q + 1], reps))
+                                        for q in quads]),
+                "pt_dbl": hc.to_affine([hc.mul(A[2 * q], 1 << reps) for q in quads])}
+        outs = {}
+        for kind, op in enumerate(OP_KINDS):
+            out = torch.empty((ADD_THREADS, curve.COORDS, curve.fp.L), dtype=torch.int32,
+                              device=dev)
+
+            def run(n):
+                err = fn(pts.data_ptr(), out.data_ptr(), ADD_THREADS, n, kind,
+                         cc._consts_words(curve), torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"bpp_op_chain_{fam} ({op}): CUDA error {err}")
+
+            ms = {n: cs.cuda_ms(lambda: run(n), 5) for n in (0, reps)}
+            run(reps)
+            outs[op] = out.clone()
+            single = op.removesuffix("_quad")
+            check = curve.decode_points(out[::4]) == want[single]
+            equal = bool(torch.equal(out, outs[single])) if op != single else None
+            ok &= check and equal is not False
+            print(json.dumps({"kernel": op, "curve": name, "family": fam,
+                              "threads": ADD_THREADS, "reps": reps, "ms_at_0": ms[0],
+                              "ms_at_reps": ms[reps],
+                              "us_per_op": (ms[reps] - ms[0]) / reps * 1e3, "check": check,
+                              "equals_single": equal}), flush=True)
+    if not ok:
+        raise AssertionError("an operation chain disagrees with the host curve or with "
+                             "its single-lane kind")
 
 
 def build(tree: str) -> None:
@@ -262,8 +290,9 @@ def build(tree: str) -> None:
 
 
 def registers(tree: str) -> dict:
-    """{("K2", point family, J), ("K1", words), ("K3", point family) or
-    ("K4", point family): (registers, spill store bytes, spill load bytes)}
+    """{("K2", point family, J), ("K1", words), ("K3", point family),
+    ("K4", point family) or ("K5", point family): (registers, spill store
+    bytes, spill load bytes)}
     from the tree's build.log (ptxas -v)."""
     with open(os.path.join(tree, "bulletproofsplus_tpu_torch", "build", "build.log")) as f:
         lines = f.read().splitlines()
@@ -279,6 +308,8 @@ def registers(tree: str) -> dict:
             key = ("K2", fam, int(re.search(r"Li(\d+)EEEv", fn).group(1)))
         elif "mont_mul_kernel" in fn or "elementwise_kernelILi" in fn and "ELi0E" in fn:
             key = ("K1", int(re.search(r"ILi(\d+)E", fn).group(1)))
+        elif "ladder_kernel" in fn:
+            key = ("K5", next(f for k, f in fams.items() if k in fn))
         elif "sum_points_kernel" in fn or "fixed_lookup_kernel" in fn:
             fam = next(f for k, f in fams.items() if k in fn)
             key = ("K3" if "sum_points" in fn else "K4", fam)
@@ -296,9 +327,9 @@ def main() -> int:
     ap.add_argument("variants", nargs="*", help="LABEL=TREE")
     ap.add_argument("--reps", type=int, default=2, help="K2 launches timed a turn")
     ap.add_argument("--curves", default="edwards25519,secp256k1,bls12_381")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4", help="which of K1-K4 to time")
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5", help="which of K1-K5 to time")
     ap.add_argument("--add-reps", type=int, default=1000,
-                    help="dependent adds a thread of the add-latency probe (0: skip it)")
+                    help="dependent operations a chain of the latency probe (0: skip it)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
     ap.add_argument("--add-chain", action="store_true", help=argparse.SUPPRESS)
@@ -312,7 +343,7 @@ def main() -> int:
         return 0
     if args.add_chain:
         sys.path.insert(0, ROOT)
-        add_chain(curves, args.add_reps)
+        op_chains(curves, args.add_reps)
         return 0
     if not torch.cuda.is_available():
         print("bench_torch_k2: no CUDA device", file=sys.stderr)
@@ -332,11 +363,11 @@ def main() -> int:
                               "--add-reps", str(args.add_reps)], capture_output=True, text=True)
         sys.stderr.write(res.stderr)
         if res.returncode != 0:
-            raise RuntimeError(f"the add-latency probe failed (exit {res.returncode})")
+            raise RuntimeError(f"the latency probe failed (exit {res.returncode})")
         for text in res.stdout.splitlines():
             print(text, flush=True)
             probe = json.loads(text)
-            add_us[probe["curve"]] = probe["us_per_add"]
+            add_us.setdefault(probe["curve"], {})[probe["kernel"]] = probe["us_per_op"]
     regs = {label: registers(tree) for label, tree in variants}
     runs = {label: [] for label, _ in variants}
     for label, tree in variants + variants[::-1]:
@@ -353,9 +384,14 @@ def main() -> int:
         key = line0["key"]
         line = {"kernel": key[0], "curve": key[1], "shape": key[2],
                 "bound_ms": line0["bound"][0], "bound_by": line0["bound"][1], "variants": {}}
-        if line0.get("G") == 1 and key[1] in add_us:
+        us = add_us.get(key[1])
+        if line0.get("G") == 1 and us:
             # ⌈log2 W⌉ dependent adds: what any tree over one group needs
-            line["latency_floor_ms"] = (line0["W"] - 1).bit_length() * add_us[key[1]] / 1e3
+            line["latency_floor_ms"] = (line0["W"] - 1).bit_length() * us["pt_add"] / 1e3
+        if key[0] == "K5" and us:
+            # one lane's chain: 14 table adds, then nwin windows of 4 doublings and an add
+            line["latency_floor_ms"] = (line0["nwin"] * (4 * us["pt_dbl_quad"] + us["pt_add_quad"])
+                                        + 14 * us["pt_add_quad"]) / 1e3
         for label, _ in variants:
             got = [run[i] for run in runs[label]]
             if any(g["key"] != key or g["digest"] != line0["digest"] for g in got):
@@ -366,7 +402,7 @@ def main() -> int:
                 "ms": ms, "mean_ms": sum(ms) / len(ms),
                 "graph_ms": [g["graph_ms"] for g in got],
                 "registers_spill": regs[label].get(tuple(line0["instance"])),
-                **{k: got[0][k] for k in ("W", "partials") if k in got[0]}}
+                **{k: got[0][k] for k in ("W", "partials", "nwin") if k in got[0]}}
         print(json.dumps(line), flush=True)
     return 0 if ok else 1
 

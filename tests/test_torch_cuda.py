@@ -295,16 +295,52 @@ def test_batch_verify_on_card(dev, c):
         bt.batch_verify(c, pk, n, batch, V, trs)
 
 
-def test_k5_kernel_matches_plain(dev, c):
-    rnd = random.Random(5)
-    P = points(c, 37, 5, dev)
-    P[3] = c.identity(dev)
-    s = c.fn.encode_plain([0] + [rnd.randrange(c.fn.p) for _ in range(36)], dev)
-    nbits = c.fn.order_bits
+def check_k5(c, s, P, nbits):
+    """One K5 launch equals the plain ladder word for word."""
     before = cc.ladder_scalar_mul.launches
     got = cc.ladder_scalar_mul(c, s, P, nbits)
     assert cc.ladder_scalar_mul.launches == before + 1
     assert torch.equal(got, cc.ladder_plain(c, s, P, nbits))
+
+
+@pytest.mark.parametrize("N", [1, 7, 9, 37, 256])
+def test_k5_kernel_matches_plain(dev, c, N):
+    """Four threads a lane: lane counts on and off a multiple of a warp's 8
+    quads (the last warp's surplus quads copy lane N − 1 and store nothing),
+    with a zero scalar and the identity where N allows."""
+    rnd = random.Random(5)
+    P = points(c, N, 5, dev)
+    vals = [rnd.randrange(c.fn.p) for _ in range(N)]
+    if N > 3:
+        vals[0] = 0
+        P[3] = c.identity(dev)
+    check_k5(c, c.fn.encode_plain(vals, dev), P, c.fn.order_bits)
+
+
+@pytest.mark.parametrize("case", ["zero", "n-1", "identity", "carry runs", "nbits=16"])
+def test_k5_kernel_edge_cases(dev, c, case):
+    """37 lanes, every third of them the case: zero scalars, the scalar
+    n − 1, the identity as P; all scalars carry runs (words of all ones and
+    zeros); or 16-bit scalars (4 windows)."""
+    from chip_smoke import carry_run_scalars
+
+    rnd = random.Random(6)
+    N, nbits = 37, c.fn.order_bits
+    P = points(c, N, 6, dev)
+    vals = [rnd.randrange(c.fn.p) for _ in range(N)]
+    if case in ("zero", "n-1"):
+        vals[::3] = [0 if case == "zero" else c.fn.p - 1] * len(vals[::3])
+    if case == "identity":
+        P[::3] = c.identity(dev)
+    if case == "nbits=16":
+        nbits = 16
+        vals = [v % (1 << 16) for v in vals]
+    s = c.fn.encode_plain(vals, dev)
+    if case == "carry runs":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        s = carry_run_scalars(N, gen, dev)
+    check_k5(c, s, P, nbits)
 
 
 def fixture_provers(c, pk, n, m, count):
