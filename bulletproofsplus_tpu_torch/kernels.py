@@ -5,9 +5,10 @@ plain C interface, loaded with ctypes; nothing includes PyTorch's headers.
 Each point-kernel source builds once per point family (csrc/family.cuh:
 -DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
 bpp_<kernel>_weierstrass at 8 words a coordinate, 2 gives
-bpp_<kernel>_weierstrass12 at 12), and all thirteen compilations run at
+bpp_<kernel>_weierstrass12 at 12), and all fourteen compilations run at
 once; the field kernels (field_ops.cu: K1's product, add, sub, neg, sum and
-power) hold both of their widths in one unit. The build
+power) hold both of their widths in one unit, and the fs256 transcript's
+SHA-256 (sha256.cu) is one more. The build
 runs at first use, into bulletproofsplus_tpu_torch/build/ (git-ignored),
 keyed by a hash of the sources, so a checkout builds everything it runs from
 its own files.
@@ -34,9 +35,9 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("field_ops.cu", "joint_ladder.cu", "sum_points.cu", "fixed_lookup.cu",
-           "ladder.cu")
-POINT_SOURCES = SOURCES[1:]
+SOURCES = ("field_ops.cu", "sha256.cu", "joint_ladder.cu", "sum_points.cu",
+           "fixed_lookup.cu", "ladder.cu")
+POINT_SOURCES = SOURCES[2:]
 FAMILIES = ("edwards", "weierstrass", "weierstrass12")     # BPP_FAMILY 0, 1, 2
 HEADERS = ("field.cuh", "points.cuh", "family.cuh", "ed25519.cuh", "weierstrass.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -59,7 +60,7 @@ _FIELD_SIGNATURES = {
     "bpp_fe_pow": [_P, _P, _LL, _I, _U32P, _I, _U32P],
 }
 # entry point: argument types before the trailing stream pointer
-SIGNATURES = {**_FIELD_SIGNATURES,
+SIGNATURES = {**_FIELD_SIGNATURES, "bpp_sha256_words": [_P, _P, _LL, _I],
               **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
                  for fam in FAMILIES}}
 

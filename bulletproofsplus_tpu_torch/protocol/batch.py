@@ -12,6 +12,11 @@ K3 launch sums the ladder's group outputs and K4's partial points together,
 so no point add runs between the two MSMs. When no table fits
 BPP_FIXED_BASE_MAX_BYTES (PublicKey.fixed_tables gives None), the generator
 lanes join the ladder's lanes, as in the JAX package (batch.py:187-192).
+
+The challenges come from the fs256 branch of `_batch_verify_fused`
+(batch.py:157-172) when every transcript is an unused Fs256Transcript (the
+default): protocol/fs256.py::fs256_replay derives them on the card, with no
+host decode or hash. Otherwise the host replays them (range.py::replay_batch).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from torch.profiler import record_function
 from ..errors import VerificationError
 from ..msm import msm_partials, tree_sum
 from ..msm.fixed import fixed_msm_partials
+from ..transcript import Fs256Transcript
+from .fs256 import fs256_replay
 from .range import (
     ProofBatch,
     replay_batch,
@@ -32,20 +39,33 @@ from .range import (
 )
 
 
+def replay_challenges(curve, n: int, m: int, batch: ProofBatch, V_all, transcripts):
+    """The K proofs' challenges as Montgomery tensors (y, z (K, 8), es
+    (K, logn, 8), e_final (K, 8)): replayed on the card when every
+    transcript is an unused fs256 one, else on the host and encoded."""
+    if all(getattr(t, "device_graph", False) and getattr(t, "_counter", None) == 0
+           for t in transcripts):
+        with record_function("bpp::fs256_replay"):
+            return fs256_replay(curve, m, V_all, batch.A, batch.L_vec, batch.R_vec,
+                                batch.A_wip, batch.B)
+    fn, dev = curve.fn, batch.A.device
+    ys, zs, ess, efs = replay_batch(curve, n, m, transcripts, batch, V_all)
+    return (fn.encode(ys, dev), fn.encode(zs, dev),
+            fn.encode([e for es in ess for e in es], dev).reshape(len(ys), -1, fn.L),
+            fn.encode(efs, dev))
+
+
 def verify_stacked(curve, pk, n: int, m: int, batch: ProofBatch, V_all,
                    challenges, W) -> bool:
     """Whether Σ_k w_k·(proof k's verification MSM) is the identity.
 
     batch: K proofs on pk's device; V_all (K, m, C, L); challenges the
-    (ys, zs, ess, efs) of replay_batch; W (K, 8) Montgomery weights."""
+    Montgomery (y, z, es, e_final) of replay_challenges; W (K, 8)
+    Montgomery weights."""
     fn = curve.fn
-    dev = pk.device
     mn = n * m
-    ys, zs, ess, efs = challenges
     with record_function("bpp::exponents"):
-        args = (fn.encode(ys, dev), fn.encode(zs, dev),
-                fn.encode([e for es in ess for e in es], dev).reshape(len(ys), -1, fn.L),
-                fn.encode(efs, dev), batch.r_prime, batch.s_prime, batch.d_prime)
+        args = (*challenges, batch.r_prime, batch.s_prime, batch.d_prime)
         if m == 1:
             uniq_s, G_exp, H_exp, g_exp, h_exp = vinputs_single_batched(fn, n, *args)
             head = [batch.B, batch.A_wip, batch.A]   # pairs [1, e, e²]
@@ -83,8 +103,8 @@ def batch_verify(curve, pk, n: int, proofs, commitment_lists,
 
     proofs: a ProofBatch or a sequence of RangeProof; commitment_lists: a
     (K, m, C, L) tensor or K equal-length lists of (C, L) points, all on
-    pk's device. transcripts: K DeterministicTranscript(m) (the only mode
-    ported so far; there is no default). rng: callable returning the 128-bit
+    pk's device. transcripts: K transcripts, by default Fs256Transcript(m)
+    each, or DeterministicTranscript(m). rng: callable returning the 128-bit
     RLC weights; the default draws them from `secrets`, and must stay
     unpredictable to the prover."""
     if len(proofs) != len(commitment_lists):
@@ -92,19 +112,17 @@ def batch_verify(curve, pk, n: int, proofs, commitment_lists,
     K = len(proofs)
     if K == 0:
         return
-    if transcripts is None:
-        raise NotImplementedError(
-            "no default transcript: pass K DeterministicTranscript(m) (the "
-            "sound fs256 mode is not ported yet)")
-    if len(transcripts) != K:
-        raise ValueError("need one transcript per proof")
     draw = rng or (lambda: secrets.randbits(128))
     batch = proofs if isinstance(proofs, ProofBatch) else ProofBatch.from_proofs(proofs)
     V_all = stack_commitments(commitment_lists)
     m = V_all.shape[1]
+    if transcripts is None:
+        transcripts = [Fs256Transcript(m) for _ in range(K)]
+    if len(transcripts) != K:
+        raise ValueError("need one transcript per proof")
     if n * m != 1 << batch.rounds or pk.length < n * m:
         raise VerificationError()
-    challenges = replay_batch(curve, n, m, transcripts)
+    challenges = replay_challenges(curve, n, m, batch, V_all, transcripts)
     W = curve.fn.encode([draw() for _ in range(K)], pk.device)
     if not verify_stacked(curve, pk.prefix(n * m), n, m, batch, V_all,
                           challenges, W):

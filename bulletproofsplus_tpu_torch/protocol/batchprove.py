@@ -1,18 +1,24 @@
 """Batch proving: K range proofs over one pk as one pass of batched programs.
 
-Port of the known-ahead branch of bulletproofsplus_tpu/protocol/
-batchprove.py::batch_prove (:124-327, the branch at :275-327). A
+Port of bulletproofsplus_tpu/protocol/batchprove.py::batch_prove (:124-375):
+the known-ahead branch (:275-327) and the fs256 branch (:329-375). A
 homogeneous batch (same n, same m) gains a leading K axis on every tensor:
 the bit commitment (K5 + K3), the setup programs, then the whole fold of
 protocol/wip.py, so every kernel launch serves all K proofs at once.
 
-Challenges come from transcripts whose challenges are known ahead
-(DeterministicTranscript); blinds are drawn ahead from any rng in the
+Challenges come from DeterministicTranscript (known ahead) or from
+Fs256Transcript, the default, whose chain runs on the card: y and z from A
+and the commitments (the JAX package draws these two on the host,
+:225-241, which here would be a Python decode of K·m points; the bytes are
+the same), then every round's and the final challenge inside the fold
+(protocol/fs256.py). Blinds are drawn ahead from any rng in the
 reference's order (every α first, then per proof its (d_L, d_R) per round
 and its four final blinds), the sequence the interactive path draws, so the
-bytes do not depend on it. The JAX package's K-chunking (:179-212) bounds
-TPU compile time and memory and its CPU gate (:171-177) is XLA machinery;
-neither is carried over: the port proves the whole batch in one pass.
+bytes do not depend on it. Other transcripts (ShaTranscript, Merlin) take
+the JAX package's interactive path, not ported yet. The JAX package's
+K-chunking (:179-212) bounds TPU compile time and memory and its CPU gate
+(:171-177) is XLA machinery; neither is carried over: the port proves the
+whole batch in one pass.
 """
 from __future__ import annotations
 
@@ -22,7 +28,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..transcript import SystemRng
+from ..hashers_device import words_tensor
+from ..transcript import Fs256Transcript, SystemRng
+from .fs256 import absorb_points, challenge_mont, counter, wip_prove_fs256_batched
 from .range import (
     ProofBatch,
     bit_commitment_batched,
@@ -44,8 +52,11 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
     batch mixing aggregation sizes proves each statement alone and returns
     a list of RangeProof.
 
-    transcripts: K DeterministicTranscript(m), the only mode ported so far
-    (there is no default). rngs: K blinding sources, by default SystemRng."""
+    transcripts: K transcripts, by default Fs256Transcript(m) each; all
+    DeterministicTranscript (challenges known ahead) or all Fs256Transcript.
+    Each fs256 transcript ends in the state and counter of the host twin
+    that proved its statement. rngs: K blinding sources, by default
+    SystemRng."""
     K = len(provers)
     if K == 0:
         return []
@@ -56,16 +67,15 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
                       rngs[i] if rngs else None)
                 for i, p in enumerate(provers)]
     validate(pk, n, m)
-    if transcripts is None:
-        raise NotImplementedError(
-            "no default transcript: pass K DeterministicTranscript(m) (the "
-            "sound fs256 mode is not ported yet)")
+    transcripts = (list(transcripts) if transcripts is not None
+                   else [Fs256Transcript(m) for _ in range(K)])
     if len(transcripts) != K or (rngs is not None and len(rngs) != K):
         raise ValueError("need one transcript (and one rng) per prover")
-    if not all(getattr(t, "challenges_known_ahead", False) for t in transcripts):
+    known = all(getattr(t, "challenges_known_ahead", False) for t in transcripts)
+    if not known and not all(getattr(t, "device_graph", False) for t in transcripts):
         raise NotImplementedError(
-            "only transcripts whose challenges are known ahead are ported; the "
-            "fs256 and ShaTranscript provers come with a later slice")
+            "only DeterministicTranscript and Fs256Transcript are ported; "
+            "ShaTranscript and Merlin need the interactive prover")
     fn = curve.fn
     rngs = list(rngs) if rngs else [SystemRng(fn.p) for _ in range(K)]
     pk = pk.prefix(n * m)
@@ -73,18 +83,13 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
     logn = (n * m).bit_length() - 1
 
     alphas = [r.alpha() for r in rngs]
-    ys, zs, es, dLs, dRs, finals, efs = [], [], [], [], [], [], []
-    for t, r in zip(transcripts, rngs):
-        y, z = t.challenge_yz(curve, None, None)
-        ys.append(y)
-        zs.append(z)
+    dLs, dRs, finals = [], [], []
+    for r in rngs:
         for _ in range(logn):
             d_L, d_R = r.round_blinds()
             dLs.append(d_L)
             dRs.append(d_R)
-            es.append(t.round_challenge(curve, None, None))
         finals.append(r.final_blinds())
-        efs.append(t.final_challenge(curve, None, None))
 
     def rows(vals):
         return fn.encode(vals, dev).reshape(K, -1, fn.L)
@@ -94,8 +99,24 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
             np.stack([bit_decompose(p.v_vec, n, m) for p in provers])).to(dev)
         A = bit_commitment_batched(curve, fn.encode_plain(alphas, dev), bits,
                                    pk.G_vec, pk.H_vec, pk.h)
+    if known:
+        yz = [t.challenge_yz(curve, None, None) for t in transcripts]
+        y_m, z_m = fn.encode([y for y, _ in yz], dev), fn.encode([z for _, z in yz], dev)
+    else:
+        with record_function("bpp::fs256_statement"):
+            counts = [t._counter for t in transcripts]
+            base = (None if not any(counts) else
+                    torch.tensor(counts, dtype=torch.int32, device=dev)[:, None])
+            state = words_tensor(np.stack([t.state_words() for t in transcripts]), dev)
+            # one stack of all K·m commitments (a copy launch per 128, not
+            # per proof)
+            V_all = torch.stack([v for p in provers for v in p.commitment_vec]).reshape(
+                K, m, *A.shape[1:])
+            state = absorb_points(curve, state, b"stmt", torch.cat([V_all, A[:, None]], dim=1))
+            state, y_m = challenge_mont(fn, state, b"y   ", counter(base, 1))
+            state, z_m = challenge_mont(fn, state, b"z   ", counter(base, 2))
     with record_function("bpp::prove_setup"):
-        y_m, z_m, alpha_m = fn.encode(ys, dev), fn.encode(zs, dev), fn.encode(alphas, dev)
+        alpha_m = fn.encode(alphas, dev)
         if m == 1:
             gamma = fn.encode([p.gamma_vec[0] for p in provers], dev)
             setup = prove_setup_single_batched(fn, n, y_m, z_m, bits, gamma, alpha_m)
@@ -105,10 +126,21 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
                                                  alpha_m)
         a_vec, b_vec, power_of_y, alpha_hat = setup
         blinds = rows([x for f in finals for x in f])          # (K, 4, 8)
-        known = (rows(es), rows(dLs), rows(dRs), blinds[:, 0], blinds[:, 1],
-                 blinds[:, 2], blinds[:, 3], fn.encode(efs, dev))
-    L_vec, R_vec, A_wip, B, r_p, s_p, d_p = wip_prove_known_batched(
-        curve, a_vec, b_vec, power_of_y, alpha_hat, pk.G_vec, pk.H_vec, pk.g,
-        pk.h, *known)
+        fold_in = (a_vec, b_vec, power_of_y, alpha_hat, pk.G_vec, pk.H_vec, pk.g, pk.h)
+        fold_blinds = (rows(dLs), rows(dRs), blinds[:, 0], blinds[:, 1], blinds[:, 2],
+                       blinds[:, 3])
+    if known:
+        es, efs = [], []
+        for t in transcripts:
+            es += [t.round_challenge(curve, None, None) for _ in range(logn)]
+            efs.append(t.final_challenge(curve, None, None))
+        L_vec, R_vec, A_wip, B, r_p, s_p, d_p = wip_prove_known_batched(
+            curve, *fold_in, rows(es), *fold_blinds, fn.encode(efs, dev))
+    else:
+        L_vec, R_vec, A_wip, B, r_p, s_p, d_p, state = wip_prove_fs256_batched(
+            curve, *fold_in, state, *fold_blinds, base=base)
+        words = state.cpu().numpy()
+        for t, w in zip(transcripts, words):
+            t.set_state_words(w, logn + 3)
     return ProofBatch(A=A, L_vec=L_vec, R_vec=R_vec, A_wip=A_wip, B=B,
                       r_prime=r_p, s_prime=s_p, d_prime=d_p)

@@ -2,9 +2,11 @@
 
 Port of bulletproofsplus_tpu/protocol/range.py. Verify side: `RangeProof`,
 `ProofBatch`, `_replay_challenges` (:380-394, batched as `replay_batch`
-:662-715), the exponent programs `_vinputs_multiple_batched` (:1017-1114)
-and `_vinputs_single_prog` (:1117-1192, here with the same leading K axis),
-and `verify` (:209-235, :502-542). Prove side: `RangeProver` (:133-146),
+:662-715: the host replay, for DeterministicTranscript and for fs256
+transcripts the card cannot replay from scratch), the exponent programs
+`_vinputs_multiple_batched` (:1017-1114) and `_vinputs_single_prog`
+(:1117-1192, here with the same leading K axis), and `verify` (:209-235,
+:502-542). Prove side: `RangeProver` (:133-146),
 `_bit_decompose` (:149-153), the bit commitment `_bit_commitment_batch_prog`
 (:254-282), the setup programs `_prove_setup_multiple_prog` (:857-894) and
 `_prove_setup_single_prog` (:310-341) with the leading K axis the JAX
@@ -33,6 +35,7 @@ from ..errors import (
     ProofError,
     VerificationError,
 )
+from ..transcript import Fs256Transcript
 from .wip import WipProof
 
 
@@ -136,21 +139,40 @@ def stack_commitments(commitment_lists) -> torch.Tensor:
     return torch.stack([torch.stack(list(V)) for V in commitment_lists])
 
 
-def replay_batch(curve, n: int, m: int, transcripts):
+def replay_batch(curve, n: int, m: int, transcripts, batch: "ProofBatch" = None,
+                 V_all=None):
     """Host Fiat-Shamir replay of K proofs: (ys, zs, ess, efs) int lists;
-    VerificationError on a zero challenge (range.py:392). Only transcripts
-    whose challenges are known ahead are ported, so no point is decoded."""
+    VerificationError on a zero challenge (range.py:392). Transcripts whose
+    challenges are known ahead look at no point; Fs256Transcript host twins
+    absorb the proofs' points (batch, V_all (K, m, C, L)), each stacked
+    tensor fetched and decoded to affine once, as the JAX package's
+    replay_batch does (range.py:662-715). Other transcripts (ShaTranscript,
+    Merlin) are not ported."""
     fn = curve.fn
+    K = len(transcripts)
     logn = (n * m).bit_length() - 1
-    if not all(getattr(tr, "challenges_known_ahead", False) for tr in transcripts):
+    if all(getattr(tr, "challenges_known_ahead", False) for tr in transcripts):
+        V = [[None] * m] * K
+        A = Aw = B = [None] * K
+        Ls = Rs = [[None] * logn] * K
+    elif all(getattr(tr, "challenges_known_ahead", False) or getattr(tr, "device_graph", False)
+             for tr in transcripts):
+        A, Aw, B = (curve.decode_points(t) for t in (batch.A, batch.A_wip, batch.B))
+        L_flat = curve.decode_points(batch.L_vec)
+        R_flat = curve.decode_points(batch.R_vec)
+        V_flat = curve.decode_points(V_all)
+        Ls = [L_flat[k * logn:(k + 1) * logn] for k in range(K)]
+        Rs = [R_flat[k * logn:(k + 1) * logn] for k in range(K)]
+        V = [V_flat[k * m:(k + 1) * m] for k in range(K)]
+    else:
         raise NotImplementedError(
-            "only DeterministicTranscript replay is ported; the fs256 device "
-            "replay comes with a later slice")
+            "only DeterministicTranscript and Fs256Transcript replays are "
+            "ported; ShaTranscript and Merlin come with a later slice")
     ys, zs, ess, efs = [], [], [], []
-    for tr in transcripts:
-        y, z = tr.challenge_yz(curve, [None] * m, None)
-        es = [tr.round_challenge(curve, None, None) % fn.p for _ in range(logn)]
-        e = tr.final_challenge(curve, None, None) % fn.p
+    for k, tr in enumerate(transcripts):
+        y, z = tr.challenge_yz(curve, V[k], A[k])
+        es = [tr.round_challenge(curve, Ls[k][j], Rs[k][j]) % fn.p for j in range(logn)]
+        e = tr.final_challenge(curve, Aw[k], B[k]) % fn.p
         if any(c == 0 for c in es) or e == 0 or y % fn.p == 0 or z % fn.p == 0:
             raise VerificationError()
         ys.append(y)
@@ -353,8 +375,8 @@ def prove_setup_single_batched(fn, n: int, y_m, z_m, bits, gamma_m, alpha_m):
 def prove(curve, pk, n: int, prover: RangeProver, transcript=None,
           rng=None) -> RangeProof:
     """One range proof (range/mod.rs:31-55), the K = 1 case of batch_prove.
-    transcript: DeterministicTranscript(m), the only mode ported so far
-    (there is no default); rng: blinding source, by default SystemRng."""
+    transcript: by default Fs256Transcript(m), or a DeterministicTranscript;
+    rng: blinding source, by default SystemRng."""
     from .batchprove import batch_prove
 
     return batch_prove(curve, pk, n, [prover],
@@ -365,8 +387,8 @@ def prove(curve, pk, n: int, prover: RangeProver, transcript=None,
 def verify(curve, proof: RangeProof, pk, n: int, commitment_vec,
            transcript=None) -> None:
     """Raises VerificationError unless the proof verifies (range/mod.rs:57-78).
-    transcript: a DeterministicTranscript(m), the only mode ported so far."""
-    from .batch import verify_stacked
+    transcript: by default Fs256Transcript(m), or a DeterministicTranscript."""
+    from .batch import replay_challenges, verify_stacked
 
     V = (commitment_vec if isinstance(commitment_vec, torch.Tensor)
          else torch.stack(list(commitment_vec)))
@@ -375,14 +397,11 @@ def verify(curve, proof: RangeProof, pk, n: int, commitment_vec,
         validate(pk, n, m)
     except ProofError as exc:
         raise VerificationError(str(exc) or "invalid arguments")
-    if transcript is None:
-        raise NotImplementedError(
-            "no default transcript: pass DeterministicTranscript(m) (the "
-            "sound fs256 mode is not ported yet)")
+    transcript = transcript if transcript is not None else Fs256Transcript(m)
     batch = ProofBatch.from_proofs([proof])
     if n * m != 1 << batch.rounds:
         raise VerificationError()
-    challenges = replay_batch(curve, n, m, [transcript])
+    challenges = replay_challenges(curve, n, m, batch, V[None], [transcript])
     W = curve.fn.one(V.device)[None]
     if not verify_stacked(curve, pk.prefix(n * m), n, m, batch, V[None],
                           challenges, W):

@@ -25,6 +25,16 @@ fe_pow is bound by operations: per element 14 table products, 4 squarings
 a window below the top one, and one product a nonzero digit there (the
 kernel skips a zero digit's product by 1).
 
+The fs256 transcript's SHA-256 (csrc/sha256.cu, one thread a message)
+reads each message once and writes a 32-byte digest, and does no
+Montgomery product; at the K or 2K messages of a launch it is bound by
+the latency of one thread's chain of compressions, which no count of bytes
+or of the card's rate sees. Its floor: on the longest dependent path of a
+round (e through Σ1 and the three-input add to the new e) lie 3 integer
+operations, each starting no sooner than INT_DEP_CYCLES after the one
+it waits for, 64 rounds a 64-byte block, at the card's boost clock. The
+throughput term counts 14 operations a round and 10 a schedule step.
+
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
 read the same formulas off the same launches (`recorded_launches`).
@@ -36,6 +46,10 @@ import contextlib
 HBM_BYTES_PER_S = 3.35e12
 INT_MADS_PER_S = 16.75e12
 SCALAR_BYTES = 32
+CLOCK_HZ = 1.98e9          # H100 SXM boost clock
+INT_DEP_CYCLES = 4         # cycles before a dependent integer ALU operation can start
+SHA_ROUND_DEPTH = 3        # dependent operations a SHA-256 round, on its longest path
+SHA_BLOCK_OPS = 64 * 14 + 48 * 10    # integer operations of one compression
 # family → (products of an add, of a doubling, words of a coordinate,
 # bytes of a point)
 FAMILIES = {"edwards": (9, 8, 8, 128), "weierstrass": (14, 9, 8, 96),
@@ -74,10 +88,29 @@ FIELD_WORDS = {"bpp_mont_mul": 10, "bpp_fe_add": 10, "bpp_fe_sub": 10, "bpp_fe_n
                "bpp_fe_sum": 5, "bpp_fe_pow": 3}
 
 
+def sha256_blocks(msg_bytes: int) -> int:
+    """64-byte blocks of a padded message of msg_bytes bytes."""
+    return (msg_bytes + 9 + 63) // 64
+
+
+def sha256_ms(B: int, msg_bytes: int) -> tuple:
+    """(bytes time, operations time) in ms of one bpp_sha256_words launch
+    over B messages: the operations time is the larger of one thread's
+    dependent chain and the card's integer rate over every compression."""
+    nb = sha256_blocks(msg_bytes)
+    t_bytes = B * (msg_bytes + 32) / HBM_BYTES_PER_S * 1e3
+    chain = nb * 64 * SHA_ROUND_DEPTH * INT_DEP_CYCLES / CLOCK_HZ * 1e3
+    rate = B * nb * SHA_BLOCK_OPS / INT_MADS_PER_S * 1e3
+    return t_bytes, max(chain, rate)
+
+
 def launch_work(name: str, args) -> tuple:
     """(bytes, Montgomery products) of one launch of C entry point `name`
     with the arguments `args` it was given (pointers first, as in
     kernels.SIGNATURES)."""
+    if name == "bpp_sha256_words":
+        B, msg_bytes = args[2:4]
+        return B * (msg_bytes + 32), 0
     if name in ("bpp_mont_mul", "bpp_fe_add", "bpp_fe_sub"):
         n, nl = args[9:11]
         read = _distinct(n, *args[1:4]) + _distinct(n, *args[5:8])
@@ -125,9 +158,12 @@ def bound(calls) -> tuple:
     of each launch's bound, and whether bytes or operations weigh more."""
     total = t_bytes = t_ops = 0.0
     for name, args in calls:
-        nbytes, muls = launch_work(name, args)
-        tb = nbytes / HBM_BYTES_PER_S * 1e3
-        to = muls * fe_mul_mads(launch_words(name, args)) / INT_MADS_PER_S * 1e3
+        if name == "bpp_sha256_words":
+            tb, to = sha256_ms(*args[2:4])
+        else:
+            nbytes, muls = launch_work(name, args)
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            to = muls * fe_mul_mads(launch_words(name, args)) / INT_MADS_PER_S * 1e3
         total += max(tb, to)
         t_bytes += tb
         t_ops += to

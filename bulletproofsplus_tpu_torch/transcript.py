@@ -1,17 +1,23 @@
 """Fiat-Shamir transcripts and blinding sources of the port.
 
-Port of bulletproofsplus_tpu/transcript.py:28-67 and :222-239.
+Port of bulletproofsplus_tpu/transcript.py:28-67, :129-219 and :222-239.
+Fs256Transcript is the sound default (the JAX package's too,
+protocol/range.py:196): a SHA-256 chain over word-aligned messages whose
+byte protocol the card evaluates itself (hashers_device.py,
+protocol/fs256.py), so batch verify replays it on the card and batch prove
+draws its challenges inside the fold; this class is its host twin.
 DeterministicTranscript and DeterministicRng replay the reference's
 stripped-transcript constants (single y = z = 7, aggregated y = 12, z = 23,
 round challenges 7, final 99; α 7/33, round blinds 4/5, final blinds
 33/44/88/123): the differential test mode, NOT a sound proof system.
-SystemRng draws blinds from `secrets` and is the prover's default rng. The
-sound fs256 transcript and its batched device replay come with a later
-slice.
+SystemRng draws blinds from `secrets` and is the prover's default rng.
 """
 from __future__ import annotations
 
+import hashlib
 import secrets
+
+import numpy as np
 
 
 class DeterministicTranscript:
@@ -31,6 +37,85 @@ class DeterministicTranscript:
 
     def final_challenge(self, curve=None, A=None, B=None) -> int:
         return 99
+
+
+FS256_LABEL = b"bulletproofsplus-tpu fs256 v1   "  # 32 bytes, word-aligned
+
+
+class Fs256Transcript:
+    """SHA-256 Fiat-Shamir transcript whose every message has a static,
+    word-aligned length, so the card runs the same chain (the host twin of
+    protocol/fs256.py, byte for byte).
+
+    Chain: state_0 = SHA256(label32 ‖ be32(m)); absorbing k points,
+    state = SHA256(state ‖ tag4 ‖ x_1 ‖ y_1 ‖ ...) with affine coordinates
+    as big-endian integers of the base field's byte length; the identity is
+    the family's image under Z⁻¹ = 0⁻¹ = 0, (0, 1) on Edwards curves and
+    (0, 0) on Weierstrass curves. A challenge: state = SHA256(state ‖ "chal"
+    ‖ tag4 ‖ be32(counter)), then c = int(SHA256(state ‖ be32(1)) ‖
+    SHA256(state ‖ be32(2))) mod the group order, 0 mapped to 1.
+
+    Points arrive as affine tuples (None for the identity) or as the port's
+    point tensors, which are decoded here."""
+
+    challenges_known_ahead = False
+    device_graph = True
+
+    def __init__(self, m: int, label: bytes = FS256_LABEL):
+        assert len(label) == 32
+        self._state = hashlib.sha256(label + m.to_bytes(4, "big")).digest()
+        self._counter = 0
+
+    # -- byte protocol ------------------------------------------------------
+
+    def _coord_bytes(self, curve, P) -> bytes:
+        cbytes = (curve.fp.p.bit_length() + 7) // 8
+        aff = P if (P is None or isinstance(P, tuple)) else curve.decode_point(P)
+        if aff is None:
+            aff = (0, 1) if curve.COORDS == 4 else (0, 0)
+        return aff[0].to_bytes(cbytes, "big") + aff[1].to_bytes(cbytes, "big")
+
+    def _absorb_points(self, curve, tag4: bytes, points) -> None:
+        assert len(tag4) == 4
+        msg = self._state + tag4 + b"".join(self._coord_bytes(curve, P) for P in points)
+        self._state = hashlib.sha256(msg).digest()
+
+    def _challenge(self, curve, tag4: bytes) -> int:
+        self._counter += 1
+        self._state = hashlib.sha256(self._state + b"chal" + tag4
+                                     + self._counter.to_bytes(4, "big")).digest()
+        d = (hashlib.sha256(self._state + (1).to_bytes(4, "big")).digest()
+             + hashlib.sha256(self._state + (2).to_bytes(4, "big")).digest())
+        c = int.from_bytes(d, "big") % curve.fn.p
+        return c if c != 0 else 1
+
+    # -- transcript API -------------------------------------------------------
+
+    def challenge_yz(self, curve, commitments, A) -> tuple:
+        self._absorb_points(curve, b"stmt", list(commitments) + [A])
+        return self._challenge(curve, b"y   "), self._challenge(curve, b"z   ")
+
+    def round_challenge(self, curve, L, R) -> int:
+        self._absorb_points(curve, b"LR  ", [L, R])
+        return self._challenge(curve, b"e   ")
+
+    def final_challenge(self, curve, A, B) -> int:
+        self._absorb_points(curve, b"AB  ", [A, B])
+        return self._challenge(curve, b"ef  ")
+
+    # -- device handoff -------------------------------------------------------
+
+    def state_words(self) -> np.ndarray:
+        """The 32-byte state as (8,) uint32 words: where the card's chain
+        starts."""
+        return np.frombuffer(self._state, dtype=">u4").astype(np.uint32)
+
+    def set_state_words(self, words, n_challenges: int) -> None:
+        """Adopt the card's final state (8 words, uint32 values or their
+        int32 bit patterns) and count the challenges it drew."""
+        self._state = b"".join((int(x) & 0xFFFFFFFF).to_bytes(4, "big")
+                               for x in np.asarray(words).reshape(-1))
+        self._counter += n_challenges
 
 
 class DeterministicRng:

@@ -58,18 +58,32 @@ final line:
      kernels), K2, K3 and K5 must have run; one profiled run counts each
      stage's launches; then batch-verify the proven batch (accept) and a
      tampered copy (reject);
- 10. prove and verify one m = 1 statement at n = 64.
+ 10. prove and verify one m = 1 statement at n = 64;
+ 11. the fs256 transcript, the port's default: hold the SHA-256 kernel
+     (csrc/sha256.cu) against its plain version, bit for bit, at each
+     message length of the K = 256 replay (the statement absorb of m + 1
+     points, an (L, R) or (A, B) absorb, a challenge's state step, its two
+     halves over 2K messages) and against hashlib on a few rows; batch-prove
+     the bench statements with fresh Fs256Transcripts (counters at 0 before
+     the run; K1, K2, K3, K5 and SHA must have run), the card's replay of
+     that batch must equal the host twin's on a sample of proofs, and the
+     prover's transcripts must end in the host twin's final state; batch-
+     verify it by default (the card's replay; K1-K4 and SHA must have run)
+     and a tampered copy must reject; both timed beside the deterministic
+     mode's verify of the deterministic bench batch, in the same call, and
+     profiled once; one m = 1 prove and verify with the default transcript.
 Last, it prints each curve's batch timings on their own lines, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
-K3, K4 and K5 also from a CUDA graph; plain time, bound and launches), the
-card, and the device line.
+K3, K4, K5 and SHA also from a CUDA graph; plain time, bound and launches),
+the card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import random
@@ -105,11 +119,17 @@ SOURCES = {**{k: (fname, "field_ops.cu", "fields/pallas_ops.py:369")
            "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
            "K3": ("sum_points", "sum_points.cu", "curves/pallas_curve.py:553"),
            "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
-           "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253")}
+           "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253"),
+           # no Pallas kernel: the JAX package's SHA-256 is XLA-fused jnp
+           "SHA": ("sha256_words", "sha256.cu", "hashers_device.py:123")}
 VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
                  "bpp::fixed_msm", "bpp::msm_sum", "bpp::identity_check")
 PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
                 "bpp::final_ab")
+FS256_VERIFY_STAGES = ("bpp::fs256_replay", *VERIFY_STAGES)
+FS256_PROVE_STAGES = ("bpp::bit_commitment", "bpp::fs256_statement", "bpp::prove_setup",
+                      "bpp::fold_round", "bpp::fs256_challenge", "bpp::final_ab")
+FS256_SAMPLE = 4        # proofs whose card replay meets the host twin's
 TRACE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_trace.json")
 
 
@@ -400,6 +420,138 @@ def carry_run_scalars(count: int, gen, device):
     kind = torch.randint(0, 3, (count, 8), generator=gen, device=device)
     s = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32, generator=gen, device=device)
     return torch.where(kind == 0, 0, torch.where(kind == 1, -1, s)).to(torch.int32)
+
+
+def word_err(ker, ref) -> int:
+    """Largest difference between two int32 tensors of uint32 words."""
+    return int(((ker.long() & 0xFFFFFFFF) - (ref.long() & 0xFFFFFFFF)).abs().max())
+
+
+def sha_holds(held: dict, name: str, curve, m: int, gen, device) -> None:
+    """Hold the SHA-256 kernel against its plain version, bit for bit, at the
+    message lengths of the K = 256 fs256 replay on this curve, and against
+    hashlib on the first and last message of each."""
+    from bulletproofsplus_tpu_torch import hashers_device as hd
+
+    L = curve.fp.L
+    for what, B, nw in (("statement absorb", K_BATCH, 9 + (m + 1) * 2 * L),
+                        ("(L, R) absorb", K_BATCH, 9 + 4 * L),
+                        ("challenge state", K_BATCH, 11),
+                        ("challenge halves", 2 * K_BATCH, 9)):
+        msgs = torch.randint(-2**31, 2**31, (B, nw), dtype=torch.int32, generator=gen,
+                             device=device)
+        nbytes = 4 * nw
+        out = hold(held, (name, "SHA", f"{what}, {B} x {nbytes} bytes"),
+                   lambda: hd.sha256_words(msgs, nbytes),
+                   lambda: hd.sha256_words_plain(msgs, nbytes), word_err, 20, graph=True)
+        for row in (0, B - 1):
+            data = msgs[row].cpu().numpy().view("uint32").astype(">u4").tobytes()
+            got = out[row].cpu().numpy().view("uint32").astype(">u4").tobytes()
+            if got != hashlib.sha256(data).digest():
+                raise AssertionError(f"SHA {what} row {row} differs from hashlib")
+
+
+def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
+                counted, wrng):
+    """Phase 11's proofs: fs256 batch prove and verify of the bench
+    statements beside the deterministic verify, the card's replay against
+    the host twin, an m = 1 prove and verify; returns (lines, launches,
+    stages)."""
+    from bulletproofsplus_tpu_torch import (
+        DeterministicRng,
+        DeterministicTranscript,
+        Fs256Transcript,
+        RangeProver,
+        VerificationError,
+        batch_prove,
+        batch_verify,
+        prove,
+        verify,
+    )
+    from bulletproofsplus_tpu_torch.protocol.fs256 import fs256_replay
+    from bulletproofsplus_tpu_torch.protocol.range import replay_batch
+
+    fn, dev = curve.fn, pk.device
+    logn = (n * m).bit_length() - 1
+    provers_trs = []
+
+    def run_prove():
+        provers_trs[:] = [Fs256Transcript(m) for _ in range(K_BATCH)]
+        return batch_prove(curve, pk, n, bench, provers_trs, [DeterministicRng(m)] * K_BATCH)
+
+    proven, prove_first_ms, prove_launches = counted(
+        run_prove, (*FIELD_KERNELS, "K2", "K3", "K5", "SHA"))
+    log(f"fs256 batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}")
+
+    # the card's replay of the whole batch against the host twin on a sample
+    sample = sorted({0, 1, K_BATCH // 2, K_BATCH - 1})[:FS256_SAMPLE]
+    card = fs256_replay(curve, m, V_bench, proven.A, proven.L_vec, proven.R_vec,
+                        proven.A_wip, proven.B)
+    twins = [Fs256Transcript(m) for _ in sample]
+    ys, zs, ess, efs = replay_batch(curve, n, m, twins, proven.take(sample), V_bench[sample])
+    want = (ys, zs, [e for es in ess for e in es], efs)
+    if tuple(fn.decode(t[sample]) for t in card) != want:
+        raise AssertionError("the card's fs256 replay differs from the host twin's")
+    for k, t in zip(sample, twins):
+        mine = provers_trs[k]
+        if (mine.state_words().tolist() != t.state_words().tolist()
+                or not mine._counter == t._counter == logn + 3):
+            raise AssertionError(f"prover transcript {k} does not end in the host twin's state")
+    log(f"fs256 replay on the card equals the host twin on proofs {sample}; "
+        "the prover's transcripts end in the twin's state")
+
+    def run_verify(b=proven):
+        batch_verify(curve, pk, n, b, V_bench, rng=lambda: wrng.getrandbits(128))
+
+    det_trs = [DeterministicTranscript(m)] * K_BATCH
+
+    def run_det_verify():
+        batch_verify(curve, pk, n, det_batch, V_bench, det_trs,
+                     rng=lambda: wrng.getrandbits(128))
+
+    _, verify_first_ms, verify_launches = counted(
+        run_verify, (*FIELD_KERNELS, "K2", "K3", "K4", "SHA"))
+    log(f"fs256 batch_verify K={K_BATCH} accepted ({verify_first_ms:.1f} ms); "
+        f"launches {verify_launches}")
+    verify_warm, det_warm = [], []
+    for turn in range(3):      # in turns: deterministic, fs256, fs256, deterministic, ...
+        order = ((det_warm, run_det_verify), (verify_warm, run_verify))
+        for out, run in (order if turn % 2 == 0 else order[::-1]):
+            out.append(once_ms(run)[1])
+    log(f"warm batch_verify of the bench batch: fs256 {[round(x, 2) for x in verify_warm]} ms, "
+        f"deterministic {[round(x, 2) for x in det_warm]} ms")
+    bad = proven.take(slice(None))
+    bad.r_prime = bad.r_prime.clone()
+    bad.r_prime[K_BATCH - 1] = fn.add(bad.r_prime[K_BATCH - 1], fn.one(dev))
+    try:
+        run_verify(bad)
+    except VerificationError:
+        log("tampered fs256 batch rejected")
+    else:
+        raise AssertionError("tampered fs256 batch was accepted")
+    prove_warm = [once_ms(run_prove)[1] for _ in range(3)]
+    log(f"warm fs256 batch_prove: {[round(x, 1) for x in prove_warm]} ms")
+    stages = {"fs256_verify": stage_profile(run_verify, FS256_VERIFY_STAGES)[:2],
+              "fs256_prove": stage_profile(run_prove, FS256_PROVE_STAGES)[:2]}
+    log(f"fs256 stages: {stages}")
+
+    one = RangeProver()
+    V1 = one.commit(pk, 0xC0FFEE1234567 % (1 << n), 1234567)
+    proof1, prove1_ms = once_ms(lambda: prove(curve, pk, n, one))
+    _, verify1_ms = once_ms(lambda: verify(curve, proof1, pk, n, V1[None]))
+    log(f"m=1 fs256 prove ({prove1_ms:.1f} ms) and verify ({verify1_ms:.1f} ms) accepted")
+
+    lines = [{"fs256_batch_verify": {"curve": name, "K": K_BATCH, "n": n, "m": m,
+                                     "first_ms": verify_first_ms, "warm_ms": verify_warm,
+                                     "deterministic_warm_ms": det_warm,
+                                     "verify_per_s": K_BATCH / min(verify_warm) * 1e3,
+                                     "single_m1_ms": verify1_ms}},
+             {"fs256_batch_prove": {"curve": name, "K": K_BATCH, "n": n, "m": m,
+                                    "first_ms": prove_first_ms, "warm_ms": prove_warm,
+                                    "proofs_per_s": K_BATCH / min(prove_warm) * 1e3,
+                                    "launches": prove_launches, "single_m1_ms": prove1_ms}}]
+    return lines, {"fs256_batch_verify": verify_launches,
+                   "fs256_batch_prove": prove_launches}, stages
 
 
 def smoke_curve(name: str, seed: int, held: dict, counted):
@@ -719,6 +871,12 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     verify(curve, proof1, pk, n, V1[None], DeterministicTranscript(1))
     log(f"m=1 prove ({prove1_ms:.1f} ms) and verify accepted")
 
+    # -- 11. the fs256 transcript -------------------------------------------
+    sha_holds(held, name, curve, m, gen, dev)
+    fs_lines, fs_launches, fs_stages = fs256_phase(name, curve, pk, n, m, bench, V_bench,
+                                                   proven, counted, wrng)
+    stages.update(fs_stages)
+
     lines = [{"batch_verify": {"curve": name, "K": K_BATCH, "n": n, "m": m,
                                "first_ms": first_ms, "warm_ms": warm,
                                "verify_per_s": K_BATCH / best * 1e3,
@@ -727,8 +885,10 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
                               "first_ms": prove_first_ms, "warm_ms": prove_warm,
                               "proofs_per_s": K_BATCH / prove_best * 1e3,
                               "launches": prove_launches,
-                              "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}}]
-    return lines, {"batch_verify": launches, "batch_prove": prove_launches}, stages
+                              "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}},
+             *fs_lines]
+    return (lines, {"batch_verify": launches, "batch_prove": prove_launches, **fs_launches},
+            stages)
 
 
 def main() -> int:
@@ -740,6 +900,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from bulletproofsplus_tpu_torch import hashers_device as hd
     from bulletproofsplus_tpu_torch import kernels
     from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
@@ -762,7 +923,7 @@ def main() -> int:
                    for k, fname in FIELD_KERNELS.items()},
                 "K2": cc.joint_ladder_msm_grouped,
                 "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
-                "K5": cc.ladder_scalar_mul}
+                "K5": cc.ladder_scalar_mul, "SHA": hd.sha256_words}
 
     def counted(run, needed):
         """Run `run` once with every launch counter at 0 just before it;
@@ -796,8 +957,8 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes Montgomery products, sums or
-            # powers mod p on 8- or 12-word limbs, or point ladders and sums
-            # on any curve family
+            # powers mod p on 8- or 12-word limbs, point ladders and sums on
+            # any curve family, or SHA-256 over a batch of tensors
             "library_ms": None}
         if g_ms is not None:
             row["graph_ms"] = g_ms

@@ -6,7 +6,12 @@ on edwards25519 (n = 64, m = 16), secp256k1 (n = 64, m = 64) or bls12-381
 n and m are those of the curve's committed fixture. Verify (the default) runs
 the fixture batch (as chip_smoke.py does); --prove batch-proves bench.py's K
 statements (v = (7k + 3i + 2) mod 2^n, γ = 2i + k + 3, committed by
-chip_smoke.py's host running sums) in the deterministic mode. Either runs 3 times warm, then once under torch.profiler, and prints,
+chip_smoke.py's host running sums) in the deterministic mode. --fs256 takes
+the fs256 transcript instead (the entry points' default): prove draws its
+challenges on the card, and verify runs on bench.py's statements
+batch-proven with it first and replays them on the card (stages
+bpp::fs256_statement, bpp::fs256_challenge, bpp::fs256_replay). Either runs
+3 times warm, then once under torch.profiler, and prints,
 per stage range (protocol/batch.py: bpp::exponents, bpp::rlc_merge,
 bpp::variable_msm, bpp::fixed_msm, bpp::msm_sum, bpp::identity_check;
 protocol/batchprove.py
@@ -21,7 +26,7 @@ set-up). Writes the Chrome trace to --trace, by default
 bulletproofsplus_tpu_torch/build/profile_trace.json (git-ignored) in the
 checkout.
 
-Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove]
+Usage: python3 scripts/profile_torch_batch_verify.py [K] [--prove] [--fs256]
        [--curve edwards25519|secp256k1|bls12_381] [--trace PATH]
 """
 from __future__ import annotations
@@ -49,6 +54,8 @@ def main() -> int:
     ap.add_argument("K", type=int, nargs="?", default=256)
     ap.add_argument("--prove", action="store_true",
                     help="profile batch_prove instead of batch_verify")
+    ap.add_argument("--fs256", action="store_true",
+                    help="the fs256 transcript instead of the deterministic mode")
     ap.add_argument("--curve", choices=sorted(FIXTURES), default="edwards25519")
     ap.add_argument("--trace", default=os.path.join(ROOT, "bulletproofsplus_tpu_torch",
                                                     "build", "profile_trace.json"),
@@ -59,12 +66,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import PROVE_STAGES, VERIFY_STAGES, stage_profile
+    from chip_smoke import (
+        FS256_PROVE_STAGES,
+        FS256_VERIFY_STAGES,
+        PROVE_STAGES,
+        VERIFY_STAGES,
+        bench_commitments,
+        stage_profile,
+    )
 
     from bulletproofsplus_tpu_torch import roofline
     from bulletproofsplus_tpu_torch import (
         DeterministicRng,
         DeterministicTranscript,
+        Fs256Transcript,
         ProofBatch,
         PublicKey,
         RangeProver,
@@ -80,18 +95,32 @@ def main() -> int:
                            FIXTURES[args.curve]), "rb") as f:
         _, n, m, rows = serialize.read_fixture(f.read())
     pk = PublicKey.new(curve, n * m, dev)
-    if args.prove:
-        from chip_smoke import bench_commitments
 
-        stages = PROVE_STAGES
+    def transcripts():
+        if args.fs256:
+            return [Fs256Transcript(m) for _ in range(K)]
+        return [DeterministicTranscript(m)] * K
+
+    if args.prove or args.fs256:
         V = bench_commitments(curve, pk, n, m, K)
         provers = [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
                                gamma_vec=[2 * i + k + 3 for i in range(m)],
                                commitment_vec=list(V[k].unbind(0))) for k in range(K)]
 
+        def prove_all():
+            return batch_prove(curve, pk, n, provers, transcripts(), [DeterministicRng(m)] * K)
+    if args.prove:
+        stages = FS256_PROVE_STAGES if args.fs256 else PROVE_STAGES
+        run = prove_all
+    elif args.fs256:
+        stages = FS256_VERIFY_STAGES
+        pk.fixed_tables(n * m)
+        batch = prove_all()
+        rnd = random.Random(0)
+
         def run():
-            batch_prove(curve, pk, n, provers, [DeterministicTranscript(m)] * K,
-                        [DeterministicRng(m)] * K)
+            batch_verify(curve, pk, n, batch, V, transcripts(),
+                         rng=lambda: rnd.getrandbits(128))
     else:
         stages = VERIFY_STAGES
         pk.fixed_tables(n * m)
@@ -134,6 +163,7 @@ def main() -> int:
     print(json.dumps({
         "card": card, "curve": args.curve, "n": n, "m": m,
         "mode": "prove" if args.prove else "verify", "K": K,
+        "transcript": "fs256" if args.fs256 else "deterministic",
         "warm_ms_unprofiled": warm_ms, **whole,
         "device_busy_share": whole["device_busy_ms"] / whole["wall_ms"],
         "stages": per_stage,

@@ -253,14 +253,34 @@ def ed_statements():
     return bt.curve_ops(name), _statements(CURVES[name], jax_curve_ops(name), 2)[1]
 
 
-def test_batch_verify_argument_errors(ed_statements):
+def test_batch_verify_argument_errors(ed_statements, monkeypatch):
+    """Argument errors; without transcripts the verifier replays fresh fs256
+    chains on the card (the default, as in the JAX package), and a
+    transcript that is neither known ahead nor fs256 still raises."""
+    from bulletproofsplus_tpu_torch.protocol import batch as batch_mod
+
     c, stmts = ed_statements
     batch, V = port_batch(c, stmts)
     pk = port_pk(c.name)
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, N, batch, V[:1], [bt.DeterministicTranscript(2)] * K)
-    with pytest.raises(NotImplementedError):
+
+    class Fs256Replay(Exception):
+        pass
+
+    def replay(curve, m, *tensors):
+        assert curve is c and m == 2 and tensors[0] is V
+        raise Fs256Replay
+
+    monkeypatch.setattr(batch_mod, "fs256_replay", replay)
+    with pytest.raises(Fs256Replay):
         bt.batch_verify(c, pk, N, batch, V)
+
+    class Interactive(bt.DeterministicTranscript):
+        challenges_known_ahead = False
+
+    with pytest.raises(NotImplementedError):
+        bt.batch_verify(c, pk, N, batch, V, [Interactive(2)] * K)
     with pytest.raises(bt.VerificationError):   # n·m does not match the rounds
         bt.batch_verify(c, pk, 16, batch, V, [bt.DeterministicTranscript(2)] * K)
     bt.batch_verify(c, pk, N, batch.take(slice(0, 0)), V[:0], [])

@@ -1,7 +1,7 @@
-"""Kernels K1–K5 (K1 with the field kernels around its product) against their
-plain versions, every point family and width,
-and the port's prover and verifier on edwards25519, secp256k1 and
-bls12-381, on an NVIDIA card.
+"""Kernels K1–K5 (K1 with the field kernels around its product) and the fs256
+transcript's SHA-256 against their plain versions, every point family and
+width, and the port's prover and verifier on edwards25519, secp256k1 and
+bls12-381 in the deterministic and fs256 modes, on an NVIDIA card.
 
 Marked `cuda`: every test skips where torch sees no CUDA device (it decides
 inside the test, so every worker collects the same tests). This file
@@ -10,6 +10,7 @@ only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
+import hashlib
 import os
 import random
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import bulletproofsplus_tpu_torch as bt
+from bulletproofsplus_tpu_torch import hashers_device as hd
 from bulletproofsplus_tpu_torch import serialize
 from bulletproofsplus_tpu_torch.curves import CURVE_NAMES
 from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
@@ -380,3 +382,60 @@ def test_prove_on_card_equals_fixture(dev, c):
     assert serialize.proof_to_bytes(c, proof) == rows[0][1]
     bt.verify(c, proof, pk, n, torch.stack(prover.commitment_vec),
               bt.DeterministicTranscript(m))
+
+
+@pytest.mark.parametrize("msg_bytes", [0, 4, 36, 44, 60, 64, 100, 164, 1124])
+def test_sha256_kernel_matches_plain(dev, msg_bytes):
+    """The SHA-256 kernel bit for bit against its plain version and hashlib,
+    on 1, 33 and 512 messages (partial warps and blocks), padding into a
+    block of its own (60, 100 bytes) included, through two leading axes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(msg_bytes)
+    for B in (1, 33, 512):
+        msgs = torch.randint(-2**31, 2**31, (B, msg_bytes // 4), dtype=torch.int32,
+                             generator=gen, device=dev)
+        before = hd.sha256_words.launches
+        out = hd.sha256_words(msgs.reshape(1, B, -1), msg_bytes)
+        assert hd.sha256_words.launches == before + 1 and out.shape == (1, B, 8)
+        assert torch.equal(out[0].cpu(), hd.sha256_words_plain(msgs.cpu(), msg_bytes))
+        for row in (0, B - 1):
+            data = msgs[row].cpu().numpy().view("uint32").astype(">u4").tobytes()
+            assert out[0, row].cpu().numpy().view("uint32").astype(">u4").tobytes() == \
+                hashlib.sha256(data).digest()
+
+
+def test_fs256_prove_and_verify_on_card(dev, c):
+    """fs256 (the default transcripts) on the card at n = 8, m = 2, K = 3:
+    the card's replay equals the host twin's, each prover transcript ends
+    in the twin's state, the batch verifies and a tampered one rejects."""
+    from bulletproofsplus_tpu_torch.protocol.fs256 import fs256_replay
+    from bulletproofsplus_tpu_torch.protocol.range import replay_batch
+
+    n, m, K = 8, 2, 3
+    pk = bt.PublicKey.new(c, n * m, dev)
+    provers = []
+    for k in range(K):
+        p = bt.RangeProver()
+        for i in range(m):
+            p.commit(pk, (37 * k + 11 * i) % (1 << n), 1000 + 7 * k + i)
+        provers.append(p)
+    trs = [bt.Fs256Transcript(m) for _ in range(K)]
+    before = hd.sha256_words.launches
+    batch = bt.batch_prove(c, pk, n, provers, trs)
+    assert hd.sha256_words.launches > before
+    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    twins = [bt.Fs256Transcript(m) for _ in range(K)]
+    ys, zs, ess, efs = replay_batch(c, n, m, twins, batch, V)
+    y, z, es, ef = fs256_replay(c, m, V, batch.A, batch.L_vec, batch.R_vec, batch.A_wip,
+                                batch.B)
+    assert (c.fn.decode(y), c.fn.decode(z), c.fn.decode(es), c.fn.decode(ef)) == (
+        ys, zs, [e for row in ess for e in row], efs)
+    for t, twin in zip(trs, twins):
+        assert t.state_words().tolist() == twin.state_words().tolist()
+        assert t._counter == twin._counter
+    bt.batch_verify(c, pk, n, batch, V)
+    bad = batch.take(slice(None))
+    bad.d_prime = bad.d_prime.clone()
+    bad.d_prime[2] = c.fn.add(bad.d_prime[2], c.fn.one(dev))
+    with pytest.raises(bt.VerificationError):
+        bt.batch_verify(c, pk, n, bad, V)

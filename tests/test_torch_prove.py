@@ -320,14 +320,28 @@ def test_mixed_aggregation_proves_each_alone(monkeypatch):
     assert seen == [(1, "t0", "r0"), (2, "t1", "r1")]
 
 
-def test_batch_prove_argument_errors():
+def test_batch_prove_argument_errors(monkeypatch):
+    """Argument errors; without transcripts the prover draws fresh fs256
+    challenges on the card (the default, as in the JAX package), and a
+    transcript that is neither known ahead nor fs256 still raises."""
     c = bt.curve_ops("edwards25519")
     pk = bt.PublicKey.new(c, 16, CPU)
     provers = port_provers(pk, [[(1, 2), (3, 4)]])
     assert bt.batch_prove(c, pk, N, []) == []
-    with pytest.raises(NotImplementedError):
+
+    class Fs256Statement(Exception):
+        pass
+
+    def absorb(curve, state, tag, pts):
+        assert tag == b"stmt" and pts.shape[:2] == (1, 3)
+        assert torch.equal(state[0], torch.from_numpy(
+            bt.Fs256Transcript(2).state_words().view(np.int32)))
+        raise Fs256Statement
+
+    monkeypatch.setattr(batchprove, "absorb_points", absorb)
+    with pytest.raises(Fs256Statement):
         bt.batch_prove(c, pk, N, provers)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(Fs256Statement):
         bt.prove(c, pk, N, provers[0])
 
     class Interactive(bt.DeterministicTranscript):
