@@ -22,10 +22,12 @@ from __future__ import annotations
 
 import secrets
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..errors import VerificationError
+from ..hashers_device import words_tensor
 from ..msm import msm_partials, tree_sum
 from ..msm.fixed import fixed_msm_partials
 from ..transcript import Fs256Transcript
@@ -42,12 +44,15 @@ from .range import (
 def replay_challenges(curve, n: int, m: int, batch: ProofBatch, V_all, transcripts):
     """The K proofs' challenges as Montgomery tensors (y, z (K, 8), es
     (K, logn, 8), e_final (K, 8)): replayed on the card when every
-    transcript is an unused fs256 one, else on the host and encoded."""
+    transcript is an unused fs256 one, each from its own start state (its
+    label's), else on the host and encoded."""
     if all(getattr(t, "device_graph", False) and getattr(t, "_counter", None) == 0
            for t in transcripts):
         with record_function("bpp::fs256_replay"):
+            state = words_tensor(np.stack([t.state_words() for t in transcripts]),
+                                 batch.A.device)
             return fs256_replay(curve, m, V_all, batch.A, batch.L_vec, batch.R_vec,
-                                batch.A_wip, batch.B)
+                                batch.A_wip, batch.B, state)
     fn, dev = curve.fn, batch.A.device
     ys, zs, ess, efs = replay_batch(curve, n, m, transcripts, batch, V_all)
     return (fn.encode(ys, dev), fn.encode(zs, dev),

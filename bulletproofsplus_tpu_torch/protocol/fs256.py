@@ -109,13 +109,15 @@ def challenge_mont(fn, state: torch.Tensor, tag4: bytes, count):
     return state, fn.select(fn.is_zero(e), fn.one(dev).expand_as(e), e)
 
 
-def fs256_replay(curve, m: int, V, A, L_vec, R_vec, Aw, B):
+def fs256_replay(curve, m: int, V, A, L_vec, R_vec, Aw, B, state=None):
     """The verifier's challenges of K proofs, derived on the card exactly as
-    the host twin derives them from fresh transcripts, with no host decode
+    the host twin derives them from unused transcripts, with no host decode
     or hash. V (K, m, C, L); A, Aw, B (K, C, L); L_vec, R_vec (K, logn, C,
-    L). Returns Montgomery (y (K, 8), z (K, 8), es (K, logn, 8), e_final
-    (K, 8)). Every absorbed point goes to affine in one conversion, then
-    each absorb takes its static slice."""
+    L); state (K, 8) the transcripts' start states (their `state_words()`),
+    by default that of `Fs256Transcript(m)` under FS256_LABEL. Returns
+    Montgomery (y (K, 8), z (K, 8), es (K, logn, 8), e_final (K, 8)). Every
+    absorbed point goes to affine in one conversion, then each absorb takes
+    its static slice."""
     fn = curve.fn
     lead, dev = A.shape[:-2], A.device
     logn = L_vec.shape[-3]
@@ -127,7 +129,9 @@ def fs256_replay(curve, m: int, V, A, L_vec, R_vec, Aw, B):
     def rows(sel):
         return cw[..., sel, :].reshape(*lead, -1)
 
-    state = absorb_words(initial_state(m, lead, dev), b"stmt", rows(slice(0, m + 1)))
+    if state is None:
+        state = initial_state(m, lead, dev)
+    state = absorb_words(state, b"stmt", rows(slice(0, m + 1)))
     state, y = challenge_mont(fn, state, b"y   ", 1)
     state, z = challenge_mont(fn, state, b"z   ", 2)
     es = []
