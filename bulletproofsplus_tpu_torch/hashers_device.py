@@ -19,13 +19,15 @@ gather (:160-182), which serves its 12-bit limbs, has no counterpart here.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import kernels
-from .fields.spec import ints_to_tensor
+from .fields.spec import int_to_words, ints_to_tensor
 
 # FIPS 180-4 §4.2.2 round constants and §5.3.3 initial hash value
 _K = np.array([
@@ -187,3 +189,144 @@ def digest_to_field_mont(fn, words: torch.Tensor) -> torch.Tensor:
     reduction has negligible bias."""
     wl = torch.nn.functional.pad(words[..., None], (0, fn.L - 1))     # plain w_j
     return fn.sum(fn.mul(wl, _digest_mont_consts(fn, words.device)), axis=-2)
+
+
+# -- the fs256 chain ------------------------------------------------------------
+
+
+class Step(NamedTuple):
+    """One step of an fs256 chain: absorb rows [row0, row0 + nrows) of a
+    transcript's coordinate words under the 4-byte tag `absorb` (None: no
+    absorb), then draw `challenges`, each a (4-byte tag, counter offset):
+    challenge number base + offset, base being the transcript's counter
+    before the chain."""
+    absorb: Optional[bytes]
+    rows: tuple
+    challenges: tuple
+
+
+MAX_STEPS = 64          # csrc/fs256_chain.cu: a schedule's steps
+MAX_CHAL = 2            # and a step's challenges
+# The kernel's shape: threads a transcript (2: the challenge's halves on a
+# pair of lanes) and whether the round constants come from constant memory.
+CHAIN_LANES = 2
+CHAIN_CONST_K = False
+
+
+@functools.lru_cache(maxsize=256)
+def schedule_words(schedule: tuple):
+    """A schedule (a tuple of Step) as the kernel's argument: per step
+    absorb (0/1), tag, row0, nrows, the number of challenges, then (tag,
+    offset) per challenge, MAX_CHAL pairs."""
+    if len(schedule) > MAX_STEPS:
+        raise ValueError(f"an fs256 chain takes at most {MAX_STEPS} steps")
+    words = []
+    for step in schedule:
+        if len(step.challenges) > MAX_CHAL:
+            raise ValueError(f"a chain step draws at most {MAX_CHAL} challenges")
+        tag = int(tag_words(step.absorb)[0]) if step.absorb is not None else 0
+        words += [int(step.absorb is not None), tag, *step.rows, len(step.challenges)]
+        for i in range(MAX_CHAL):
+            ctag, off = step.challenges[i] if i < len(step.challenges) else (b"    ", 0)
+            words += [int(tag_words(ctag)[0]), off]
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_field(spec):
+    """The kernel's field argument: p, -p^-1 mod 2^32, c_hi = 2^256·R² mod
+    p and c_lo = R² mod p (the digest halves' weights; R = 2^256), R mod p."""
+    p, r2 = spec.modulus, spec.r2_mod_p
+    words = (spec.p_words + [spec.n0inv] + int_to_words((1 << 256) * r2 % p, 8)
+             + int_to_words(r2, 8) + int_to_words(spec.r_mod_p, 8))
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def _check_chain(fn, state, base, cw, schedule) -> int:
+    """Shapes of an fs256 chain call; returns its number of challenges."""
+    K = state.shape[0]
+    if fn.L != 8:
+        raise ValueError("fs256 challenges are 8-word scalars")
+    if state.shape != (K, 8) or cw.dim() != 3 or cw.shape[0] != K:
+        raise ValueError(f"fs256_chain: state {tuple(state.shape)} and coordinate words "
+                         f"{tuple(cw.shape)} are not (K, 8) and (K, rows, words)")
+    if base is not None and base.shape != (K,):
+        raise ValueError(f"fs256_chain: counters {tuple(base.shape)} are not ({K},)")
+    for step in schedule:
+        r0, nr = step.rows
+        if r0 < 0 or nr < 0 or r0 + nr > cw.shape[1]:
+            raise ValueError(f"fs256_chain: rows {step.rows} outside {cw.shape[1]} rows")
+    return sum(len(step.challenges) for step in schedule)
+
+
+def fs256_chain_plain(fn, state, base, cw, schedule):
+    """The chain composed from the plain SHA-256 and digest_to_field_mont:
+    per absorb one hash of state ‖ tag ‖ rows, per challenge one of state ‖
+    "chal" ‖ tag ‖ be32(counter), one of both halves and the 16-product
+    reduction, 0 mapped to 1, on fn's plain field ops (no launch on any
+    device). Returns (challenges (K, S, 8), state (K, 8))."""
+    fn = fn.plain
+    K, dev = state.shape[0], state.device
+    ctr = (base.to(torch.int64) if base is not None
+           else torch.zeros(K, dtype=torch.int64, device=dev))
+
+    def tag(t):
+        return words_tensor(tag_words(t), dev).expand(K, -1)
+
+    halves = words_tensor(np.array([[1], [2]], np.uint32), dev).expand(K, 2, 1)
+    out = []
+    for step in schedule:
+        if step.absorb is not None:
+            r0, nr = step.rows
+            msg = torch.cat([state, tag(step.absorb), cw[:, r0:r0 + nr].reshape(K, -1)], -1)
+            state = sha256_words_plain(msg, 4 * msg.shape[-1])
+        for ctag, off in step.challenges:
+            count = ((ctr + off) & MASK32)[:, None]
+            count = (count - ((count >> 31) << 32)).to(torch.int32)
+            msg = torch.cat([state, tag(b"chal"), tag(ctag), count], -1)
+            state = sha256_words_plain(msg, 44)
+            d = sha256_words_plain(torch.cat([state[:, None].expand(K, 2, 8), halves], -1), 36)
+            e = digest_to_field_mont(fn, d.reshape(K, 16))
+            out.append(fn.select(fn.is_zero(e), fn.one(dev).expand_as(e), e))
+    chal = torch.stack(out, 1) if out else state.new_zeros(K, 0, fn.L)
+    return chal, state
+
+
+def fs256_chain(fn, state, base, cw, schedule, lanes=None, const_k=None):
+    """Run the fs256 chain `schedule` (a tuple of Step) over K transcripts:
+    state (K, 8) int32 start states, base (K,) int32 counters before the
+    chain or None for 0, cw (K, rows, words) int32 coordinate words (the
+    absorbed points' big-endian affine words, a point a row). Returns
+    (challenges (K, S, 8) in Montgomery form of fn's field, the final
+    states (K, 8)). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (csrc/fs256_chain.cu) once, or raises. `lanes` and
+    `const_k` override the kernel's shape (CHAIN_LANES, CHAIN_CONST_K)."""
+    nchal = _check_chain(fn, state, base, cw, schedule)
+    if state.device.type == "cpu":
+        return fs256_chain_plain(fn, state, base, cw, schedule)
+    pairs = [(state, torch.int32), (cw, torch.int32)]
+    if base is not None:
+        pairs.append((base, torch.int32))
+    kernels.check_operands("fs256_chain", *pairs)
+    return _chain_launch(fn, state, base, cw, schedule, nchal,
+                         CHAIN_LANES if lanes is None else lanes,
+                         CHAIN_CONST_K if const_k is None else const_k)
+
+
+def _chain_launch(fn, state, base, cw, schedule, nchal, lanes, const_k):
+    K, dev = state.shape[0], state.device
+    st = kernels.aligned(state)
+    x = kernels.aligned(cw)
+    b = None if base is None else base.contiguous()
+    chal = torch.empty((K, nchal, 8), dtype=torch.int32, device=dev)
+    out = torch.empty((K, 8), dtype=torch.int32, device=dev)
+    if K:
+        kernels.launch("bpp_fs256_chain", st.data_ptr(), 0 if b is None else b.data_ptr(),
+                       x.data_ptr(), chal.data_ptr(), out.data_ptr(), K, cw.shape[1],
+                       cw.shape[2], schedule_words(schedule), len(schedule),
+                       _chain_field(fn.spec), lanes, int(const_k), device=dev)
+        fs256_chain.launches += 1
+    return chal, out
+
+
+fs256_chain.launches = 0

@@ -5,10 +5,11 @@ plain C interface, loaded with ctypes; nothing includes PyTorch's headers.
 Each point-kernel source builds once per point family (csrc/family.cuh:
 -DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
 bpp_<kernel>_weierstrass at 8 words a coordinate, 2 gives
-bpp_<kernel>_weierstrass12 at 12), and all fourteen compilations run at
+bpp_<kernel>_weierstrass12 at 12), and all fifteen compilations run at
 once; the field kernels (field_ops.cu: K1's product, add, sub, neg, sum and
 power) hold both of their widths in one unit, and the fs256 transcript's
-SHA-256 (sha256.cu) is one more. The build
+chain (fs256_chain.cu) and SHA-256 (sha256.cu), which share sha256.cuh's
+compression, are two more. The build
 runs at first use, into bulletproofsplus_tpu_torch/build/ (git-ignored),
 keyed by a hash of the sources, so a checkout builds everything it runs from
 its own files.
@@ -35,11 +36,12 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("field_ops.cu", "sha256.cu", "joint_ladder.cu", "sum_points.cu",
-           "fixed_lookup.cu", "ladder.cu")
-POINT_SOURCES = SOURCES[2:]
+SOURCES = ("field_ops.cu", "sha256.cu", "fs256_chain.cu", "joint_ladder.cu",
+           "sum_points.cu", "fixed_lookup.cu", "ladder.cu")
+POINT_SOURCES = SOURCES[3:]
 FAMILIES = ("edwards", "weierstrass", "weierstrass12")     # BPP_FAMILY 0, 1, 2
-HEADERS = ("field.cuh", "points.cuh", "family.cuh", "ed25519.cuh", "weierstrass.cuh")
+HEADERS = ("field.cuh", "points.cuh", "family.cuh", "ed25519.cuh", "weierstrass.cuh",
+           "sha256.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -61,6 +63,7 @@ _FIELD_SIGNATURES = {
 }
 # entry point: argument types before the trailing stream pointer
 SIGNATURES = {**_FIELD_SIGNATURES, "bpp_sha256_words": [_P, _P, _LL, _I],
+              "bpp_fs256_chain": [_P, _P, _P, _P, _P, _LL, _I, _I, _U32P, _I, _U32P, _I, _I],
               **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
                  for fam in FAMILIES}}
 

@@ -11,7 +11,7 @@ Fs256Transcript, the default, whose chain runs on the card: y and z from A
 and the commitments (the JAX package draws these two on the host,
 :225-241, which here would be a Python decode of K·m points; the bytes are
 the same), then every round's and the final challenge inside the fold
-(protocol/fs256.py). Blinds are drawn ahead from any rng in the
+(protocol/fs256.py), each step one launch of the fs256 chain kernel. Blinds are drawn ahead from any rng in the
 reference's order (every α first, then per proof its (d_L, d_R) per round
 and its four final blinds), the sequence the interactive path draws, so the
 bytes do not depend on it. Other transcripts (ShaTranscript, Merlin) take
@@ -30,7 +30,7 @@ from torch.profiler import record_function
 
 from ..hashers_device import words_tensor
 from ..transcript import Fs256Transcript, SystemRng
-from .fs256 import absorb_points, challenge_mont, counter, wip_prove_fs256_batched
+from .fs256 import absorb_and_draw, statement_step, wip_prove_fs256_batched
 from .range import (
     ProofBatch,
     bit_commitment_batched,
@@ -106,15 +106,15 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
         with record_function("bpp::fs256_statement"):
             counts = [t._counter for t in transcripts]
             base = (None if not any(counts) else
-                    torch.tensor(counts, dtype=torch.int32, device=dev)[:, None])
+                    torch.tensor(counts, dtype=torch.int32, device=dev))
             state = words_tensor(np.stack([t.state_words() for t in transcripts]), dev)
             # one stack of all K·m commitments (a copy launch per 128, not
             # per proof)
             V_all = torch.stack([v for p in provers for v in p.commitment_vec]).reshape(
                 K, m, *A.shape[1:])
-            state = absorb_points(curve, state, b"stmt", torch.cat([V_all, A[:, None]], dim=1))
-            state, y_m = challenge_mont(fn, state, b"y   ", counter(base, 1))
-            state, z_m = challenge_mont(fn, state, b"z   ", counter(base, 2))
+            yz, state = absorb_and_draw(curve, state, base, statement_step(m),
+                                        torch.cat([V_all, A[:, None]], dim=1))
+            y_m, z_m = yz[:, 0], yz[:, 1]
     with record_function("bpp::prove_setup"):
         alpha_m = fn.encode(alphas, dev)
         if m == 1:

@@ -35,6 +35,17 @@ operations, each starting no sooner than INT_DEP_CYCLES after the one
 it waits for, 64 rounds a 64-byte block, at the card's boost clock. The
 throughput term counts 14 operations a round and 10 a schedule step.
 
+The fs256 chain kernel (csrc/fs256_chain.cu) runs K transcripts' chains
+of absorbs and challenges in one launch; it reads the absorbed coordinate
+words and the start states once and writes the challenges and the final
+states. Its floor is one transcript's dependent path: every absorb's
+blocks and, per challenge, the state step and one half (the two halves
+are independent) at the chain term above, plus one Montgomery product (the
+digest's reduction takes one product a half, both halves side by side,
+and an add), whose dependent path is FE_MUL_DEPTH operations: each of the
+product's nl rows runs four carry chains of nl operations, all threading
+one carry flag, 4·nl² at INT_DEP_CYCLES each.
+
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
 read the same formulas off the same launches (`recorded_launches`).
@@ -50,6 +61,7 @@ CLOCK_HZ = 1.98e9          # H100 SXM boost clock
 INT_DEP_CYCLES = 4         # cycles before a dependent integer ALU operation can start
 SHA_ROUND_DEPTH = 3        # dependent operations a SHA-256 round, on its longest path
 SHA_BLOCK_OPS = 64 * 14 + 48 * 10    # integer operations of one compression
+CHAIN_STEP_WORDS = 9       # hashers_device.schedule_words: words of a chain step
 # family → (products of an add, of a doubling, words of a coordinate,
 # bytes of a point)
 FAMILIES = {"edwards": (9, 8, 8, 128), "weierstrass": (14, 9, 8, 96),
@@ -102,6 +114,43 @@ def sha256_ms(B: int, msg_bytes: int) -> tuple:
     chain = nb * 64 * SHA_ROUND_DEPTH * INT_DEP_CYCLES / CLOCK_HZ * 1e3
     rate = B * nb * SHA_BLOCK_OPS / INT_MADS_PER_S * 1e3
     return t_bytes, max(chain, rate)
+
+
+def fe_mul_depth(nl: int) -> int:
+    """Dependent operations of one CIOS Montgomery product of nl words."""
+    return 4 * nl * nl
+
+
+def chain_steps(words, nsteps: int) -> list:
+    """(absorbs, rows absorbed, challenges) of each step of a chain
+    schedule as the kernel takes it (hashers_device.schedule_words)."""
+    w = list(words)
+    return [(bool(w[CHAIN_STEP_WORDS * i]), w[CHAIN_STEP_WORDS * i + 3],
+             w[CHAIN_STEP_WORDS * i + 4]) for i in range(nsteps)]
+
+
+def fs256_chain_ms(steps, K: int, rows: int, row_words: int) -> tuple:
+    """(bytes time, operations time) in ms of one bpp_fs256_chain launch over
+    K transcripts of `rows` coordinate rows of `row_words` words, `steps` a
+    list of (absorbs, rows absorbed, challenges): the operations time is the
+    larger of one transcript's dependent path and the card's integer rate
+    over every compression of the launch."""
+    nchal = sum(c for _, _, c in steps)
+    absorb = sum(sha256_blocks(4 * (9 + nr * row_words)) for a, nr, _ in steps if a)
+    t_bytes = K * (rows * row_words * 4 + 32 + nchal * 32 + 32) / HBM_BYTES_PER_S * 1e3
+    path = (absorb + 2 * nchal) * 64 * SHA_ROUND_DEPTH + nchal * fe_mul_depth(8)
+    chain = path * INT_DEP_CYCLES / CLOCK_HZ * 1e3
+    rate = (K * (absorb + 3 * nchal) * SHA_BLOCK_OPS
+            + K * nchal * 2 * fe_mul_mads(8)) / INT_MADS_PER_S * 1e3
+    return t_bytes, max(chain, rate)
+
+
+def chain_compressions(steps, row_words: int) -> tuple:
+    """(compressions on one transcript's dependent path, compressions a
+    transcript hashes in all) of a chain schedule."""
+    nchal = sum(c for _, _, c in steps)
+    absorb = sum(sha256_blocks(4 * (9 + nr * row_words)) for a, nr, _ in steps if a)
+    return absorb + 2 * nchal, absorb + 3 * nchal
 
 
 def launch_work(name: str, args) -> tuple:
@@ -160,6 +209,9 @@ def bound(calls) -> tuple:
     for name, args in calls:
         if name == "bpp_sha256_words":
             tb, to = sha256_ms(*args[2:4])
+        elif name == "bpp_fs256_chain":
+            K, rows, row_words, sched, nsteps = args[5:10]
+            tb, to = fs256_chain_ms(chain_steps(sched, nsteps), K, rows, row_words)
         else:
             nbytes, muls = launch_work(name, args)
             tb = nbytes / HBM_BYTES_PER_S * 1e3

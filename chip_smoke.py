@@ -61,21 +61,26 @@ final line:
  10. prove and verify one m = 1 statement at n = 64;
  11. the fs256 transcript, the port's default: hold the SHA-256 kernel
      (csrc/sha256.cu) against its plain version, bit for bit, at each
-     message length of the K = 256 replay (the statement absorb of m + 1
-     points, an (L, R) or (A, B) absorb, a challenge's state step, its two
-     halves over 2K messages) and against hashlib on a few rows; batch-prove
+     message length of a K = 256 replay by SHA launches (the statement
+     absorb of m + 1 points, an (L, R) or (A, B) absorb, a challenge's
+     state step, its two halves over 2K messages) and against hashlib on a
+     few rows; hold the fs256 chain kernel (csrc/fs256_chain.cu) against
+     its plain version, bit for bit, at the K = 256 verifier's schedule and
+     the prover's round step, both also from a CUDA graph; batch-prove
      the bench statements with fresh Fs256Transcripts (counters at 0 before
-     the run; K1, K2, K3, K5 and SHA must have run), the card's replay of
-     that batch must equal the host twin's on a sample of proofs, and the
-     prover's transcripts must end in the host twin's final state; batch-
-     verify it by default (the card's replay; K1-K4 and SHA must have run)
+     the run; K1, K2, K3, K5 and the chain must have run), the card's
+     replay of that batch must equal the host twin's on a sample of proofs,
+     and the prover's transcripts must end in the host twin's final state;
+     batch-verify it by default (the card's replay; K1-K4 and the chain
+     must have run)
      and a tampered copy must reject; both timed beside the deterministic
      mode's verify of the deterministic bench batch, in the same call, and
      profiled once; one m = 1 prove and verify with the default transcript.
 Last, it prints each curve's batch timings on their own lines, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
-K3, K4, K5 and SHA also from a CUDA graph; plain time, bound and launches),
+K3, K4, K5, SHA and the chain also from a CUDA graph; plain time, bound and
+launches),
 the card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
@@ -120,8 +125,10 @@ SOURCES = {**{k: (fname, "field_ops.cu", "fields/pallas_ops.py:369")
            "K3": ("sum_points", "sum_points.cu", "curves/pallas_curve.py:553"),
            "K4": ("fixed_lookup", "fixed_lookup.cu", "curves/pallas_curve.py:371"),
            "K5": ("ladder", "ladder.cu", "curves/pallas_curve.py:253"),
-           # no Pallas kernel: the JAX package's SHA-256 is XLA-fused jnp
-           "SHA": ("sha256_words", "sha256.cu", "hashers_device.py:123")}
+           # no Pallas kernel: the JAX package's SHA-256 and its fs256 chain
+           # are XLA-fused jnp
+           "SHA": ("sha256_words", "sha256.cu", "hashers_device.py:123"),
+           "chain": ("fs256_chain", "fs256_chain.cu", "protocol/fs256.py:137")}
 VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
                  "bpp::fixed_msm", "bpp::msm_sum", "bpp::identity_check")
 PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
@@ -451,6 +458,39 @@ def sha_holds(held: dict, name: str, curve, m: int, gen, device) -> None:
                 raise AssertionError(f"SHA {what} row {row} differs from hashlib")
 
 
+def chain_holds(held: dict, name: str, curve, n: int, m: int, gen, device) -> None:
+    """Hold the fs256 chain kernel against its plain version, bit for bit,
+    at the K = 256 verifier's schedule (the whole replay: the statement,
+    every round, the final challenge) and at the prover's last round step
+    (counters past 0), on seeded coordinate words and states; timed through
+    its wrapper and from a CUDA graph."""
+    from bulletproofsplus_tpu_torch import hashers_device as hd
+    from bulletproofsplus_tpu_torch import roofline
+    from bulletproofsplus_tpu_torch.protocol import fs256
+
+    fn, W = curve.fn, 2 * curve.fp.L
+    logn = (n * m).bit_length() - 1
+    rows = m + 3 + 2 * logn
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, generator=gen,
+                             device=device)
+
+    cw, state = words(K_BATCH, rows, W), words(K_BATCH, 8)
+    base = torch.randint(0, 1 << 20, (K_BATCH,), dtype=torch.int32, generator=gen,
+                         device=device)
+    for what, b, sched, x in (("replay", None, fs256.replay_schedule(m, logn), cw),
+                              ("prover round", base, (fs256.round_step(logn - 1),),
+                               cw[:, :2].contiguous())):
+        steps = roofline.chain_steps(hd.schedule_words(sched), len(sched))
+        path, _ = roofline.chain_compressions(steps, W)
+        hold(held, (name, "chain", f"{what}, {K_BATCH} transcripts, {path} compressions "
+                                   f"on a transcript's path"),
+             lambda: hd.fs256_chain(fn, state, b, x, sched),
+             lambda: hd.fs256_chain_plain(fn, state, b, x, sched),
+             lambda ker, ref: max(word_err(p, q) for p, q in zip(ker, ref)), 20, graph=True)
+
+
 def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
                 counted, wrng):
     """Phase 11's proofs: fs256 batch prove and verify of the bench
@@ -480,7 +520,7 @@ def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
         return batch_prove(curve, pk, n, bench, provers_trs, [DeterministicRng(m)] * K_BATCH)
 
     proven, prove_first_ms, prove_launches = counted(
-        run_prove, (*FIELD_KERNELS, "K2", "K3", "K5", "SHA"))
+        run_prove, (*FIELD_KERNELS, "K2", "K3", "K5", "chain"))
     log(f"fs256 batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}")
 
     # the card's replay of the whole batch against the host twin on a sample
@@ -510,7 +550,7 @@ def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
                      rng=lambda: wrng.getrandbits(128))
 
     _, verify_first_ms, verify_launches = counted(
-        run_verify, (*FIELD_KERNELS, "K2", "K3", "K4", "SHA"))
+        run_verify, (*FIELD_KERNELS, "K2", "K3", "K4", "chain"))
     log(f"fs256 batch_verify K={K_BATCH} accepted ({verify_first_ms:.1f} ms); "
         f"launches {verify_launches}")
     verify_warm, det_warm = [], []
@@ -873,6 +913,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
 
     # -- 11. the fs256 transcript -------------------------------------------
     sha_holds(held, name, curve, m, gen, dev)
+    chain_holds(held, name, curve, n, m, gen, dev)
     fs_lines, fs_launches, fs_stages = fs256_phase(name, curve, pk, n, m, bench, V_bench,
                                                    proven, counted, wrng)
     stages.update(fs_stages)
@@ -923,7 +964,8 @@ def main() -> int:
                    for k, fname in FIELD_KERNELS.items()},
                 "K2": cc.joint_ladder_msm_grouped,
                 "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
-                "K5": cc.ladder_scalar_mul, "SHA": hd.sha256_words}
+                "K5": cc.ladder_scalar_mul, "SHA": hd.sha256_words,
+                "chain": hd.fs256_chain}
 
     def counted(run, needed):
         """Run `run` once with every launch counter at 0 just before it;
@@ -958,7 +1000,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes Montgomery products, sums or
             # powers mod p on 8- or 12-word limbs, point ladders and sums on
-            # any curve family, or SHA-256 over a batch of tensors
+            # any curve family, SHA-256 over a batch of tensors, or a
+            # Fiat-Shamir chain
             "library_ms": None}
         if g_ms is not None:
             row["graph_ms"] = g_ms

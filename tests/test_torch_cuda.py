@@ -404,10 +404,50 @@ def test_sha256_kernel_matches_plain(dev, msg_bytes):
                 hashlib.sha256(data).digest()
 
 
+@pytest.mark.parametrize("K", [1, 3, 256])
+def test_fs256_chain_kernel_matches_plain(dev, c, K):
+    """The fs256 chain kernel bit for bit against its plain version (run on
+    CPU copies), in both of its shapes (one lane or a pair of lanes a
+    transcript, round constants as immediates or from constant memory):
+    the verifier's schedule from the default label's state and from a
+    custom label's, and the prover's one-step schedules on counters that
+    start past 0; K = 256 fills more than one warp of pairs."""
+    from bulletproofsplus_tpu_torch.protocol import fs256
+
+    m, logn = 4, 3
+    rows = m + 3 + 2 * logn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K)
+    pool = points(c, 4 * rows, K, dev)
+    pool[3] = c.identity(dev)
+    idx = torch.randint(0, 4 * rows, (K, rows), generator=gen, device=dev)
+    cw = fs256.affine_words(c, pool[idx]).reshape(K, rows, -1)
+    default = fs256.initial_state(m, (K,), dev).contiguous()
+    custom = hd.words_tensor(bt.Fs256Transcript(m, b"a custom fs256 label, 32 bytes. "
+                                                ).state_words(), dev).expand(K, 8).contiguous()
+    rand = torch.randint(-2**31, 2**31, (K, 8), dtype=torch.int32, generator=gen, device=dev)
+    base = torch.randint(1, 9, (K,), dtype=torch.int32, generator=gen, device=dev)
+    cases = [(default, None, fs256.replay_schedule(m, logn)),
+             (custom, None, fs256.replay_schedule(m, logn)),
+             (rand, base, (fs256.statement_step(m),)),
+             (rand, base, (fs256.round_step(1, m + 3),)),
+             (custom, base, (fs256.final_step(logn, rows - 2),))]
+    for state, b, schedule in cases:
+        want = hd.fs256_chain_plain(c.fn, state.cpu(), None if b is None else b.cpu(),
+                                    cw.cpu(), schedule)
+        for lanes, const_k in ((2, False), (1, False), (2, True)):
+            before = hd.fs256_chain.launches
+            got = hd.fs256_chain(c.fn, state, b, cw, schedule, lanes, const_k)
+            assert hd.fs256_chain.launches == before + 1
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
 def test_fs256_prove_and_verify_on_card(dev, c):
     """fs256 (the default transcripts) on the card at n = 8, m = 2, K = 3:
-    the card's replay equals the host twin's, each prover transcript ends
-    in the twin's state, the batch verifies and a tampered one rejects."""
+    the chain kernel draws every challenge (no SHA-256 launch on either
+    path), the card's replay equals the host twin's, each prover transcript
+    ends in the twin's state, the batch verifies and a tampered one
+    rejects."""
     from bulletproofsplus_tpu_torch.protocol.fs256 import fs256_replay
     from bulletproofsplus_tpu_torch.protocol.range import replay_batch
 
@@ -420,9 +460,9 @@ def test_fs256_prove_and_verify_on_card(dev, c):
             p.commit(pk, (37 * k + 11 * i) % (1 << n), 1000 + 7 * k + i)
         provers.append(p)
     trs = [bt.Fs256Transcript(m) for _ in range(K)]
-    before = hd.sha256_words.launches
+    before, sha = hd.fs256_chain.launches, hd.sha256_words.launches
     batch = bt.batch_prove(c, pk, n, provers, trs)
-    assert hd.sha256_words.launches > before
+    assert hd.fs256_chain.launches == before + 1 + (n * m).bit_length()   # y/z, rounds, final
     V = bt.stack_commitments([p.commitment_vec for p in provers])
     twins = [bt.Fs256Transcript(m) for _ in range(K)]
     ys, zs, ess, efs = replay_batch(c, n, m, twins, batch, V)
@@ -433,7 +473,9 @@ def test_fs256_prove_and_verify_on_card(dev, c):
     for t, twin in zip(trs, twins):
         assert t.state_words().tolist() == twin.state_words().tolist()
         assert t._counter == twin._counter
+    before = hd.fs256_chain.launches
     bt.batch_verify(c, pk, n, batch, V)
+    assert hd.fs256_chain.launches == before + 1 and hd.sha256_words.launches == sha
     bad = batch.take(slice(None))
     bad.d_prime = bad.d_prime.clone()
     bad.d_prime[2] = c.fn.add(bad.d_prime[2], c.fn.one(dev))

@@ -4,8 +4,8 @@ secp256k1 and bls12-381 G1.
 Layers, bottom up: the plain SHA-256 against hashlib and JAX
 `sha256_words`; the field packing and digest reduction against JAX's on four
 fields; the host twin `Fs256Transcript` against JAX's on the same affine
-points, identity included; the port's device chain (`absorb_points`,
-`challenge_mont` on CPU tensors) against its host twin; `fs256_replay`
+points, identity included; the port's device chain (`absorb_and_draw`,
+the chain kernel's plain version on CPU tensors) against its host twin; `fs256_replay`
 against JAX `fs256_replay` and both host twins; and whole proofs at n = 8.
 Every comparison is exact: canonical integers, words, proof bytes and the
 transcripts' final state and counter.
@@ -175,9 +175,10 @@ def test_transcript_matches_jax(name):
 
 @pytest.mark.parametrize("name", CURVE_NAMES)
 def test_device_chain_matches_host_twin(name):
-    """absorb_points and challenge_mont on CPU tensors with a leading axis of
-    two transcripts in different states, against the host twin row by row;
-    points as projective tensors with Z ≠ 1, identity included."""
+    """absorb_and_draw (one chain step: absorb, then a challenge) on CPU
+    tensors with a leading axis of two transcripts in different states,
+    against the host twin row by row; points as projective tensors with
+    Z ≠ 1, identity included."""
     c, gc = bt.curve_ops(name), CURVES[name]
     P = sample_points(gc)
     scaled = [x * 5 % c.fp.p for A in P for x in c.host.lift(A)]   # the same points
@@ -185,30 +186,32 @@ def test_device_chain_matches_host_twin(name):
     twins = [bt.Fs256Transcript(2), bt.Fs256Transcript(4)]
     state = hd.words_tensor(np.stack([t.state_words() for t in twins]))
     rows = torch.stack([proj[[0, 2]], proj[[3, 1]]])            # (2, 2, C, L)
-    state = fs256.absorb_points(c, state, b"LR  ", rows)
-    state, e = fs256.challenge_mont(c.fn, state, b"e   ", 1)
-    state = fs256.absorb_points(c, state, b"AB  ", rows.flip(1))
-    state, ef = fs256.challenge_mont(c.fn, state, b"ef  ", 2)
+    e, state = fs256.absorb_and_draw(c, state, None, hd.Step(b"LR  ", (0, 2), ((b"e   ", 1),)),
+                                     rows)
+    ef, state = fs256.absorb_and_draw(c, state, None,
+                                      hd.Step(b"AB  ", (0, 2), ((b"ef  ", 2),)), rows.flip(1))
     for k, (t, (i, j)) in enumerate(zip(twins, ((0, 2), (3, 1)))):
         t._absorb_points(c, b"LR  ", [P[i], P[j]])
-        assert c.fn.decode(e[k]) == t._challenge(c, b"e   ")
+        assert c.fn.decode(e[k, 0]) == t._challenge(c, b"e   ")
         t._absorb_points(c, b"AB  ", [P[j], P[i]])
-        assert c.fn.decode(ef[k]) == t._challenge(c, b"ef  ")
+        assert c.fn.decode(ef[k, 0]) == t._challenge(c, b"ef  ")
         assert digest_bytes(state[k]) == t._state
 
 
 def test_zero_challenge_maps_to_one_on_the_card_and_rejects_on_the_host(monkeypatch):
-    """A digest that reduces to 0 gives the challenge 1 on the device chain,
-    as on the host twin; the host replay rejects a transcript that hands it
-    a zero challenge (range.py:392)."""
+    """A digest that reduces to 0 gives the challenge 1 in the chain (its
+    plain version, which the card's kernel equals word for word), as on the
+    host twin; the host replay rejects a transcript that hands it a zero
+    challenge (range.py:392)."""
     c = bt.curve_ops("edwards25519")
     state = hd.words_tensor(np.stack([bt.Fs256Transcript(2).state_words()] * 2))
-    real = fs256.digest_to_field_mont
-    monkeypatch.setattr(fs256, "digest_to_field_mont",
+    real = hd.digest_to_field_mont
+    monkeypatch.setattr(hd, "digest_to_field_mont",
                         lambda fn, d: torch.cat([torch.zeros_like(real(fn, d[:1])),
                                                  real(fn, d[1:])]))
-    _, e = fs256.challenge_mont(c.fn, state, b"e   ", 1)
-    assert c.fn.decode(e[0]) == 1 and c.fn.decode(e[1]) not in (0, 1)
+    e, _ = hd.fs256_chain(c.fn, state, None, torch.zeros(2, 0, 16, dtype=torch.int32),
+                          (hd.Step(None, (0, 0), ((b"e   ", 1),)),))
+    assert c.fn.decode(e[0, 0]) == 1 and c.fn.decode(e[1, 0]) not in (0, 1)
 
     class ZeroRound(bt.DeterministicTranscript):
         def round_challenge(self, curve=None, L=None, R=None):

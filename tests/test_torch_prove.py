@@ -332,13 +332,13 @@ def test_batch_prove_argument_errors(monkeypatch):
     class Fs256Statement(Exception):
         pass
 
-    def absorb(curve, state, tag, pts):
-        assert tag == b"stmt" and pts.shape[:2] == (1, 3)
+    def absorb(curve, state, base, step, pts):
+        assert step.absorb == b"stmt" and pts.shape[:2] == (1, 3) and base is None
         assert torch.equal(state[0], torch.from_numpy(
             bt.Fs256Transcript(2).state_words().view(np.int32)))
         raise Fs256Statement
 
-    monkeypatch.setattr(batchprove, "absorb_points", absorb)
+    monkeypatch.setattr(batchprove, "absorb_and_draw", absorb)
     with pytest.raises(Fs256Statement):
         bt.batch_prove(c, pk, N, provers)
     with pytest.raises(Fs256Statement):
