@@ -42,6 +42,18 @@
 // transcript K - 1, so every lane reaches the full-mask shuffle; only live
 // lanes store. An absorb loads each block's successor while it compresses
 // the current one, two register buffers in turn, so no copy between blocks.
+//
+// With SPLIT, a block is two warps on two schedulers: warp 0 runs the chain
+// as above, warp 1 (the producer) runs ahead through every absorb's blocks
+// after the first (those hold only coordinate words and padding, known
+// before the chain reaches them) and writes each one's W_t + K_t to a
+// shared-memory slot, lane-major so every access is conflict-free; the
+// chain's warp takes the rounds alone (sha::compress_wk). Two slots and
+// four named barriers (a slot full, a slot empty) pace the pair: the
+// producer refills a slot only after the chain has released it, and the
+// chain releases only slots the producer will refill, so every barrier
+// phase meets its 64 threads. An absorb's first block (the state), the
+// challenges and the halves stay whole on the chain's warp.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,9 +62,14 @@
 
 using namespace bpp;
 
+#ifndef __CUDA_ARCH__
+// A host build of the kernels (g++, no card) supplies the named barriers.
+__device__ void bpp_host_barrier(int id, int threads, bool wait);
+#endif
+
 namespace {
 
-constexpr int THREADS = 32;
+constexpr int WARP = 32;
 constexpr int MAX_STEPS = 64;
 constexpr int MAX_CHAL = 2;
 // a step's words in the schedule argument: absorb (0/1), tag, row0, nrows,
@@ -78,6 +95,37 @@ struct Field {
   uint32_t c_hi[SW], c_lo[SW], one[SW];
 };
 
+// The split compression's shared-memory handoff, seen by one lane: slot s's
+// W_t + K_t at wk[(s · 64 + t) · WARP]; `fill` counts the blocks passed so
+// far, `fills` those of the whole schedule.
+struct Pipe {
+  uint32_t* wk;
+  int slot, fill, fills;
+};
+
+constexpr int FULL = 1, EMPTY = 3;    // named barrier ids, + slot (0 is __syncthreads')
+
+// Wait at named barrier `id` until `threads` threads have reached it.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+#else
+  bpp_host_barrier(id, threads, true);
+#endif
+}
+
+// Count this warp at named barrier `id` without waiting.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+#else
+  bpp_host_barrier(id, threads, false);
+#endif
+}
+
+// Blocks of an absorb of n coordinate words.
+__host__ __device__ __forceinline__ int absorb_blocks(int n) { return (4 * (9 + n) + 9 + 63) / 64; }
+
 // Word g >= 9 of the padded absorb message of nw words in `total` (a
 // multiple of 16): the coordinate words, 0x80000000, zeros, and the bit
 // length as the last word (the one before it, its high half, is 0).
@@ -102,34 +150,68 @@ __device__ __forceinline__ void load_block(uint32_t (&b)[16], const uint32_t* __
   }
 }
 
-// st = SHA256(st ‖ tag ‖ rest[0, n)).
-template <bool CK>
+// st = SHA256(st ‖ tag ‖ rest[0, n)). With SPLIT the blocks after the
+// first take their schedules from the producer warp.
+template <bool SPLIT>
 __device__ __forceinline__ void absorb(uint32_t (&st)[8], uint32_t tag,
-                                       const uint32_t* __restrict__ rest, int n) {
+                                       const uint32_t* __restrict__ rest, int n, Pipe& p) {
   const int nw = 9 + n;
-  const int nblocks = (4 * nw + 9 + 63) / 64;
+  const int nblocks = absorb_blocks(n);
   const int total = 16 * nblocks;
   uint32_t a[16], b[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) a[k] = k < 8 ? st[k] : k == 8 ? tag : absorb_word(rest, k, nw, total);
   sha::init(st);
-  for (int blk = 0; blk < nblocks; blk += 2) {
-    if (blk + 1 < nblocks) load_block(b, rest, 16 * (blk + 1), nw, total);
-    sha::compress<CK>(st, a);
-    if (blk + 1 >= nblocks) break;
-    if (blk + 2 < nblocks) load_block(a, rest, 16 * (blk + 2), nw, total);
-    sha::compress<CK>(st, b);
+  if constexpr (SPLIT) {
+    sha::compress(st, a);
+    for (int blk = 1; blk < nblocks; ++blk) {
+      bar_sync(FULL + p.slot, 2 * WARP);
+      sha::compress_wk<WARP>(st, p.wk + p.slot * 64 * WARP);
+      if (p.fill < p.fills - 2) bar_arrive(EMPTY + p.slot, 2 * WARP);
+      p.slot ^= 1;
+      ++p.fill;
+    }
+  } else {
+    for (int blk = 0; blk < nblocks; blk += 2) {
+      if (blk + 1 < nblocks) load_block(b, rest, 16 * (blk + 1), nw, total);
+      sha::compress(st, a);
+      if (blk + 1 >= nblocks) break;
+      if (blk + 2 < nblocks) load_block(a, rest, 16 * (blk + 2), nw, total);
+      sha::compress(st, b);
+    }
+  }
+}
+
+// The producer warp: every absorb's blocks after the first, in the chain's
+// order, each block's W_t + K_t into the next slot once the chain has
+// released it (the first two slots are free).
+__device__ __forceinline__ void produce(const Schedule& sc, const uint32_t* __restrict__ mine,
+                                        int row_words, Pipe& p) {
+  for (int s = 0; s < sc.nsteps; ++s) {
+    if (!sc.s[s].absorb) continue;
+    const uint32_t* rest = mine + (long long)sc.s[s].row0 * row_words;
+    const int n = sc.s[s].nrows * row_words;
+    const int nblocks = absorb_blocks(n);
+    for (int blk = 1; blk < nblocks; ++blk) {
+      uint32_t w[16];
+      load_block(w, rest, 16 * blk, 9 + n, 16 * nblocks);
+      if (p.fill >= 2) bar_sync(EMPTY + p.slot, 2 * WARP);
+      sha::schedule_wk<WARP>(w, p.wk + p.slot * 64 * WARP);
+      __threadfence_block();
+      bar_arrive(FULL + p.slot, 2 * WARP);
+      p.slot ^= 1;
+      ++p.fill;
+    }
   }
 }
 
 // d = SHA256(st ‖ be32(i)), a 36-byte message.
-template <bool CK>
 __device__ __forceinline__ void half_digest(uint32_t (&d)[8], const uint32_t (&st)[8],
                                             uint32_t i) {
   uint32_t w[16] = {st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                     i, 0x80000000u, 0u, 0u, 0u, 0u, 0u, 36u * 8u};
   sha::init(d);
-  sha::compress<CK>(d, w);
+  sha::compress(d, w);
 }
 
 // r = fe_mul(c, d as a little-endian 256-bit number): d·c·R^-1 mod p.
@@ -141,36 +223,46 @@ __device__ __forceinline__ void weigh(uint32_t (&r)[SW], const uint32_t (&d)[8],
   fe_mul(r, c, x, M);
 }
 
-template <int LANES, bool CK>
-__global__ void __launch_bounds__(THREADS)
+template <int LANES, bool SPLIT>
+__global__ void __launch_bounds__(2 * WARP)
     chain_kernel(const uint32_t* __restrict__ start, const int32_t* __restrict__ base,
                  const uint32_t* __restrict__ cw, uint32_t* __restrict__ chal,
                  uint32_t* __restrict__ state_out, long long K, int rows, int row_words,
-                 int nchal, Schedule sc, Field F) {
-  const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
+                 int nchal, int fills, Schedule sc, Field F) {
+  const int l = threadIdx.x % WARP;
+  const long long lane = (long long)blockIdx.x * WARP + l;
   const bool live = lane / LANES < K;
   const long long k = live ? lane / LANES : K - 1;
-  const uint32_t half = LANES == 2 ? (uint32_t)(threadIdx.x & 1) : 0u;
+  const uint32_t half = LANES == 2 ? (uint32_t)(l & 1) : 0u;
+  const uint32_t* mine = cw + k * rows * row_words;
+  Pipe p{nullptr, 0, 0, fills};
+  if constexpr (SPLIT) {
+    __shared__ uint32_t wk[2 * 64 * WARP];
+    p.wk = wk + l;
+    if (threadIdx.x >= WARP) {
+      produce(sc, mine, row_words, p);
+      return;
+    }
+  }
   uint32_t st[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = start[k * 8 + i];
   const uint32_t ctr = base ? (uint32_t)base[k] : 0u;
-  const uint32_t* mine = cw + k * rows * row_words;
   int out = 0;
   for (int s = 0; s < sc.nsteps; ++s) {
     if (sc.s[s].absorb)
-      absorb<CK>(st, sc.s[s].tag, mine + (long long)sc.s[s].row0 * row_words,
-                 sc.s[s].nrows * row_words);
+      absorb<SPLIT>(st, sc.s[s].tag, mine + (long long)sc.s[s].row0 * row_words,
+                    sc.s[s].nrows * row_words, p);
     for (int c = 0; c < sc.s[s].nchal; ++c) {
       uint32_t w[16] = {st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], CHAL,
                         sc.s[s].ctag[c], ctr + (uint32_t)sc.s[s].coff[c], 0x80000000u,
                         0u, 0u, 0u, 44u * 8u};
       sha::init(st);
-      sha::compress<CK>(st, w);
+      sha::compress(st, w);
       uint32_t e[SW], d[8];
       if constexpr (LANES == 2) {
         uint32_t cst[SW], other[SW];
-        half_digest<CK>(d, st, half + 1);
+        half_digest(d, st, half + 1);
 #pragma unroll
         for (int i = 0; i < SW; ++i) cst[i] = half ? F.c_lo[i] : F.c_hi[i];
         weigh(e, d, cst, F.M);
@@ -181,11 +273,11 @@ __global__ void __launch_bounds__(THREADS)
         uint32_t cst[SW], lo[SW];
 #pragma unroll
         for (int i = 0; i < SW; ++i) cst[i] = F.c_hi[i];
-        half_digest<CK>(d, st, 1u);
+        half_digest(d, st, 1u);
         weigh(e, d, cst, F.M);
 #pragma unroll
         for (int i = 0; i < SW; ++i) cst[i] = F.c_lo[i];
-        half_digest<CK>(d, st, 2u);
+        half_digest(d, st, 2u);
         weigh(lo, d, cst, F.M);
         fe_add(e, e, lo, F.M);
       }
@@ -205,14 +297,14 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int LANES, bool CK>
+template <int LANES, bool SPLIT>
 int run(const void* start, const void* base, const void* cw, void* chal, void* state_out,
-        long long K, int rows, int row_words, int nchal, const Schedule& sc, const Field& F,
-        cudaStream_t stream) {
-  const unsigned grid = (unsigned)((K * LANES + THREADS - 1) / THREADS);
-  chain_kernel<LANES, CK><<<grid, THREADS, 0, stream>>>(
+        long long K, int rows, int row_words, int nchal, int fills, const Schedule& sc,
+        const Field& F, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((K * LANES + WARP - 1) / WARP);
+  chain_kernel<LANES, SPLIT><<<grid, SPLIT ? 2 * WARP : WARP, 0, stream>>>(
       (const uint32_t*)start, (const int32_t*)base, (const uint32_t*)cw, (uint32_t*)chal,
-      (uint32_t*)state_out, K, rows, row_words, nchal, sc, F);
+      (uint32_t*)state_out, K, rows, row_words, nchal, fills, sc, F);
   return (int)cudaGetLastError();
 }
 
@@ -222,18 +314,18 @@ int run(const void* start, const void* base, const void* cw, void* chal, void* s
 // cw: K × rows × row_words coordinate words; chal: K × (the schedule's
 // challenges) × 8 Montgomery words; state_out: K × 8. sched: nsteps ×
 // STEP_WORDS words; field: FIELD_WORDS words (p, -p^-1 mod 2^32, c_hi, c_lo,
-// R mod p). lanes: 1 or 2 threads a transcript; const_k: round constants
-// from constant memory instead of immediates.
+// R mod p). lanes: 1 or 2 threads a transcript; split: a producer warp
+// beside the chain's runs the absorbs' message schedules.
 extern "C" int bpp_fs256_chain(const void* start, const void* base, const void* cw, void* chal,
                                void* state_out, long long K, int rows, int row_words,
                                const uint32_t* sched, int nsteps, const uint32_t* field,
-                               int lanes, int const_k, void* stream) {
+                               int lanes, int split, void* stream) {
   if (K <= 0 || rows < 0 || row_words < 0 || nsteps < 0 || nsteps > MAX_STEPS ||
       (lanes != 1 && lanes != 2))
     return (int)cudaErrorInvalidValue;
   Schedule sc;
   sc.nsteps = nsteps;
-  int nchal = 0;
+  int nchal = 0, fills = 0;
   for (int i = 0; i < nsteps; ++i) {
     const uint32_t* w = sched + i * STEP_WORDS;
     Step& st = sc.s[i];
@@ -250,6 +342,7 @@ extern "C" int bpp_fs256_chain(const void* start, const void* base, const void* 
       st.coff[c] = (int)w[6 + 2 * c];
     }
     nchal += st.nchal;
+    if (st.absorb) fills += absorb_blocks(st.nrows * row_words) - 1;
   }
   Field F;
   for (int i = 0; i < SW; ++i) {
@@ -261,12 +354,12 @@ extern "C" int bpp_fs256_chain(const void* start, const void* base, const void* 
   F.M.np0 = field[SW];
   const cudaStream_t s = (cudaStream_t)stream;
   if (lanes == 2)
-    return const_k ? run<2, true>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
-                                  sc, F, s)
-                   : run<2, false>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
-                                   sc, F, s);
-  return const_k ? run<1, true>(start, base, cw, chal, state_out, K, rows, row_words, nchal, sc,
-                                F, s)
-                 : run<1, false>(start, base, cw, chal, state_out, K, rows, row_words, nchal, sc,
-                                 F, s);
+    return split ? run<2, true>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
+                                fills, sc, F, s)
+                 : run<2, false>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
+                                 fills, sc, F, s);
+  return split ? run<1, true>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
+                              fills, sc, F, s)
+               : run<1, false>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
+                               fills, sc, F, s);
 }

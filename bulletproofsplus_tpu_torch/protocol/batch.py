@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import secrets
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -49,7 +48,7 @@ def replay_challenges(curve, n: int, m: int, batch: ProofBatch, V_all, transcrip
     if all(getattr(t, "device_graph", False) and getattr(t, "_counter", None) == 0
            for t in transcripts):
         with record_function("bpp::fs256_replay"):
-            state = words_tensor(np.stack([t.state_words() for t in transcripts]),
+            state = words_tensor(Fs256Transcript.stacked_state_words(transcripts),
                                  batch.A.device)
             return fs256_replay(curve, m, V_all, batch.A, batch.L_vec, batch.R_vec,
                                 batch.A_wip, batch.B, state)

@@ -107,7 +107,7 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
             counts = [t._counter for t in transcripts]
             base = (None if not any(counts) else
                     torch.tensor(counts, dtype=torch.int32, device=dev))
-            state = words_tensor(np.stack([t.state_words() for t in transcripts]), dev)
+            state = words_tensor(Fs256Transcript.stacked_state_words(transcripts), dev)
             # one stack of all K·m commitments (a copy launch per 128, not
             # per proof)
             V_all = torch.stack([v for p in provers for v in p.commitment_vec]).reshape(

@@ -7,7 +7,7 @@ For each curve (edwards25519 at m = 16, secp256k1 at m = 64, bls12-381 at
 m = 256; n = 64), on seeded random coordinate words, states and counters:
 the verifier's replay schedule, the prover's statement step, a round step
 and the final step. Every shape of the kernel (one lane or a pair of lanes
-a transcript; round constants as immediates or from constant memory) runs
+a transcript; with or without a producer warp of message schedules) runs
 in turns, forward then backward, each timed as a CUDA graph of `--reps`
 launches, and must equal the first shape's output word for word; the
 default shape is also held against the plain version on the round step.
@@ -32,7 +32,7 @@ sys.path.insert(0, ROOT)
 
 CELLS = (("edwards25519", 16), ("secp256k1", 64), ("bls12_381", 256))
 N, K = 64, 256
-SHAPES = ((2, False), (1, False), (2, True), (1, True))     # (lanes, const_k)
+SHAPES = ((2, False), (1, False), (2, True), (1, True))     # (lanes, split)
 
 
 def main() -> int:
@@ -98,7 +98,7 @@ def main() -> int:
             line = {"curve": name, "m": m, "K": K, "schedule": what,
                     "path_compressions": path, "compressions": total,
                     "challenges": sum(c for _, _, c in steps), "floor_ms": floor,
-                    "shapes": [{"lanes": s[0], "const_k": s[1], "graph_ms": ms[s],
+                    "shapes": [{"lanes": s[0], "split": s[1], "graph_ms": ms[s],
                                 "us_per_path_block": min(ms[s]) * 1e3 / path,
                                 "x_floor": min(ms[s]) / floor} for s in SHAPES]}
             print(json.dumps(line), flush=True)
