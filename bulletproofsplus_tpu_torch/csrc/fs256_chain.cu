@@ -32,28 +32,28 @@
 // Design for the card. A transcript is one dependent sequence of
 // compressions (about 90 / 150 / 500 blocks at K = 256 on edwards25519 /
 // secp256k1 / bls12-381), so the launch is bound by one warp's issue of
-// that chain, not by the card's rate; K transcripts spread one warp a block
-// over the SMs. With LANES = 2 a transcript runs on an aligned pair of
-// lanes: both run the shared chain in lockstep (the same instructions on
-// the same data: no cost over one lane), then lane h hashes half h + 1 and
-// takes its one product, and one __shfl_xor_sync and a field add join the
-// two. A challenge's critical path is then 2 compressions and 1 product,
-// not 3 and 2. With LANES = 1 one thread does it all. Lanes past K copy
-// transcript K - 1, so every lane reaches the full-mask shuffle; only live
-// lanes store. An absorb loads each block's successor while it compresses
-// the current one, two register buffers in turn, so no copy between blocks.
+// that chain, not by the card's rate; K transcripts spread over the SMs,
+// sixteen to a block of two warps.
 //
-// With SPLIT, a block is two warps on two schedulers: warp 0 runs the chain
-// as above, warp 1 (the producer) runs ahead through every absorb's blocks
-// after the first (those hold only coordinate words and padding, known
-// before the chain reaches them) and writes each one's W_t + K_t to a
-// shared-memory slot, lane-major so every access is conflict-free; the
-// chain's warp takes the rounds alone (sha::compress_wk). Two slots and
-// four named barriers (a slot full, a slot empty) pace the pair: the
-// producer refills a slot only after the chain has released it, and the
-// chain releases only slots the producer will refill, so every barrier
-// phase meets its 64 threads. An absorb's first block (the state), the
-// challenges and the halves stay whole on the chain's warp.
+// - Two lanes a transcript. An aligned pair of lanes runs the shared chain
+//   in lockstep (the same instructions on the same data: no cost over one
+//   lane); then lane h hashes half h + 1 and takes its one product, and one
+//   __shfl_xor_sync and a field add join the two. A challenge's critical
+//   path is 2 compressions and 1 product, not 3 and 2. Lanes past K copy
+//   transcript K - 1, so every lane reaches the full-mask shuffle and every
+//   barrier; only live lanes store.
+// - A producer warp. Warp 0 runs the chain; warp 1, on another scheduler,
+//   runs ahead through every absorb's blocks after the first (those hold
+//   only coordinate words and padding, known before the chain reaches
+//   them) and writes each one's W_t + K_t to a shared-memory slot,
+//   lane-major so every access is conflict-free; the chain's warp takes
+//   the rounds alone (sha::compress_wk), some 900 integer operations a
+//   block instead of 1,400. Two slots and four named barriers (a slot full,
+//   a slot empty) pace the pair: the producer refills a slot only after the
+//   chain has released it, and the chain releases only slots the producer
+//   will refill, so every barrier phase meets its 64 threads. An absorb's
+//   first block (it holds the state), the challenges and the halves stay
+//   whole on the chain's warp.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,7 +95,7 @@ struct Field {
   uint32_t c_hi[SW], c_lo[SW], one[SW];
 };
 
-// The split compression's shared-memory handoff, seen by one lane: slot s's
+// The producer's shared-memory handoff, seen by one lane: slot s's
 // W_t + K_t at wk[(s · 64 + t) · WARP]; `fill` counts the blocks passed so
 // far, `fills` those of the whole schedule.
 struct Pipe {
@@ -150,35 +150,24 @@ __device__ __forceinline__ void load_block(uint32_t (&b)[16], const uint32_t* __
   }
 }
 
-// st = SHA256(st ‖ tag ‖ rest[0, n)). With SPLIT the blocks after the
-// first take their schedules from the producer warp.
-template <bool SPLIT>
+// st = SHA256(st ‖ tag ‖ rest[0, n)): the first block here, the rest from
+// the producer's schedules.
 __device__ __forceinline__ void absorb(uint32_t (&st)[8], uint32_t tag,
                                        const uint32_t* __restrict__ rest, int n, Pipe& p) {
   const int nw = 9 + n;
   const int nblocks = absorb_blocks(n);
-  const int total = 16 * nblocks;
-  uint32_t a[16], b[16];
+  uint32_t a[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) a[k] = k < 8 ? st[k] : k == 8 ? tag : absorb_word(rest, k, nw, total);
+  for (int k = 0; k < 16; ++k)
+    a[k] = k < 8 ? st[k] : k == 8 ? tag : absorb_word(rest, k, nw, 16 * nblocks);
   sha::init(st);
-  if constexpr (SPLIT) {
-    sha::compress(st, a);
-    for (int blk = 1; blk < nblocks; ++blk) {
-      bar_sync(FULL + p.slot, 2 * WARP);
-      sha::compress_wk<WARP>(st, p.wk + p.slot * 64 * WARP);
-      if (p.fill < p.fills - 2) bar_arrive(EMPTY + p.slot, 2 * WARP);
-      p.slot ^= 1;
-      ++p.fill;
-    }
-  } else {
-    for (int blk = 0; blk < nblocks; blk += 2) {
-      if (blk + 1 < nblocks) load_block(b, rest, 16 * (blk + 1), nw, total);
-      sha::compress(st, a);
-      if (blk + 1 >= nblocks) break;
-      if (blk + 2 < nblocks) load_block(a, rest, 16 * (blk + 2), nw, total);
-      sha::compress(st, b);
-    }
+  sha::compress(st, a);
+  for (int blk = 1; blk < nblocks; ++blk) {
+    bar_sync(FULL + p.slot, 2 * WARP);
+    sha::compress_wk<WARP>(st, p.wk + p.slot * 64 * WARP);
+    if (p.fill < p.fills - 2) bar_arrive(EMPTY + p.slot, 2 * WARP);
+    p.slot ^= 1;
+    ++p.fill;
   }
 }
 
@@ -223,26 +212,22 @@ __device__ __forceinline__ void weigh(uint32_t (&r)[SW], const uint32_t (&d)[8],
   fe_mul(r, c, x, M);
 }
 
-template <int LANES, bool SPLIT>
 __global__ void __launch_bounds__(2 * WARP)
     chain_kernel(const uint32_t* __restrict__ start, const int32_t* __restrict__ base,
                  const uint32_t* __restrict__ cw, uint32_t* __restrict__ chal,
                  uint32_t* __restrict__ state_out, long long K, int rows, int row_words,
                  int nchal, int fills, Schedule sc, Field F) {
+  __shared__ uint32_t wk[2 * 64 * WARP];
   const int l = threadIdx.x % WARP;
   const long long lane = (long long)blockIdx.x * WARP + l;
-  const bool live = lane / LANES < K;
-  const long long k = live ? lane / LANES : K - 1;
-  const uint32_t half = LANES == 2 ? (uint32_t)(l & 1) : 0u;
+  const bool live = lane / 2 < K;
+  const long long k = live ? lane / 2 : K - 1;
+  const uint32_t half = (uint32_t)(l & 1);
   const uint32_t* mine = cw + k * rows * row_words;
-  Pipe p{nullptr, 0, 0, fills};
-  if constexpr (SPLIT) {
-    __shared__ uint32_t wk[2 * 64 * WARP];
-    p.wk = wk + l;
-    if (threadIdx.x >= WARP) {
-      produce(sc, mine, row_words, p);
-      return;
-    }
+  Pipe p{wk + l, 0, 0, fills};
+  if (threadIdx.x >= WARP) {
+    produce(sc, mine, row_words, p);
+    return;
   }
   uint32_t st[8];
 #pragma unroll
@@ -251,36 +236,22 @@ __global__ void __launch_bounds__(2 * WARP)
   int out = 0;
   for (int s = 0; s < sc.nsteps; ++s) {
     if (sc.s[s].absorb)
-      absorb<SPLIT>(st, sc.s[s].tag, mine + (long long)sc.s[s].row0 * row_words,
-                    sc.s[s].nrows * row_words, p);
+      absorb(st, sc.s[s].tag, mine + (long long)sc.s[s].row0 * row_words,
+             sc.s[s].nrows * row_words, p);
     for (int c = 0; c < sc.s[s].nchal; ++c) {
       uint32_t w[16] = {st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], CHAL,
                         sc.s[s].ctag[c], ctr + (uint32_t)sc.s[s].coff[c], 0x80000000u,
                         0u, 0u, 0u, 44u * 8u};
       sha::init(st);
       sha::compress(st, w);
-      uint32_t e[SW], d[8];
-      if constexpr (LANES == 2) {
-        uint32_t cst[SW], other[SW];
-        half_digest(d, st, half + 1);
+      uint32_t e[SW], d[8], cst[SW], other[SW];
+      half_digest(d, st, half + 1);
 #pragma unroll
-        for (int i = 0; i < SW; ++i) cst[i] = half ? F.c_lo[i] : F.c_hi[i];
-        weigh(e, d, cst, F.M);
+      for (int i = 0; i < SW; ++i) cst[i] = half ? F.c_lo[i] : F.c_hi[i];
+      weigh(e, d, cst, F.M);
 #pragma unroll
-        for (int i = 0; i < SW; ++i) other[i] = __shfl_xor_sync(0xffffffffu, e[i], 1);
-        fe_add(e, e, other, F.M);
-      } else {
-        uint32_t cst[SW], lo[SW];
-#pragma unroll
-        for (int i = 0; i < SW; ++i) cst[i] = F.c_hi[i];
-        half_digest(d, st, 1u);
-        weigh(e, d, cst, F.M);
-#pragma unroll
-        for (int i = 0; i < SW; ++i) cst[i] = F.c_lo[i];
-        half_digest(d, st, 2u);
-        weigh(lo, d, cst, F.M);
-        fe_add(e, e, lo, F.M);
-      }
+      for (int i = 0; i < SW; ++i) other[i] = __shfl_xor_sync(0xffffffffu, e[i], 1);
+      fe_add(e, e, other, F.M);
       uint32_t any = 0;
 #pragma unroll
       for (int i = 0; i < SW; ++i) any |= e[i];
@@ -297,31 +268,18 @@ __global__ void __launch_bounds__(2 * WARP)
   }
 }
 
-template <int LANES, bool SPLIT>
-int run(const void* start, const void* base, const void* cw, void* chal, void* state_out,
-        long long K, int rows, int row_words, int nchal, int fills, const Schedule& sc,
-        const Field& F, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((K * LANES + WARP - 1) / WARP);
-  chain_kernel<LANES, SPLIT><<<grid, SPLIT ? 2 * WARP : WARP, 0, stream>>>(
-      (const uint32_t*)start, (const int32_t*)base, (const uint32_t*)cw, (uint32_t*)chal,
-      (uint32_t*)state_out, K, rows, row_words, nchal, fills, sc, F);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // start: K rows of 8 state words; base: K int32 counters or null (all 0);
 // cw: K × rows × row_words coordinate words; chal: K × (the schedule's
 // challenges) × 8 Montgomery words; state_out: K × 8. sched: nsteps ×
 // STEP_WORDS words; field: FIELD_WORDS words (p, -p^-1 mod 2^32, c_hi, c_lo,
-// R mod p). lanes: 1 or 2 threads a transcript; split: a producer warp
-// beside the chain's runs the absorbs' message schedules.
+// R mod p).
 extern "C" int bpp_fs256_chain(const void* start, const void* base, const void* cw, void* chal,
                                void* state_out, long long K, int rows, int row_words,
                                const uint32_t* sched, int nsteps, const uint32_t* field,
-                               int lanes, int split, void* stream) {
-  if (K <= 0 || rows < 0 || row_words < 0 || nsteps < 0 || nsteps > MAX_STEPS ||
-      (lanes != 1 && lanes != 2))
+                               void* stream) {
+  if (K <= 0 || rows < 0 || row_words < 0 || nsteps < 0 || nsteps > MAX_STEPS)
     return (int)cudaErrorInvalidValue;
   Schedule sc;
   sc.nsteps = nsteps;
@@ -352,14 +310,9 @@ extern "C" int bpp_fs256_chain(const void* start, const void* base, const void* 
     F.one[i] = field[3 * SW + 1 + i];
   }
   F.M.np0 = field[SW];
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (lanes == 2)
-    return split ? run<2, true>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
-                                fills, sc, F, s)
-                 : run<2, false>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
-                                 fills, sc, F, s);
-  return split ? run<1, true>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
-                              fills, sc, F, s)
-               : run<1, false>(start, base, cw, chal, state_out, K, rows, row_words, nchal,
-                               fills, sc, F, s);
+  const unsigned grid = (unsigned)((2 * K + WARP - 1) / WARP);
+  chain_kernel<<<grid, 2 * WARP, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)start, (const int32_t*)base, (const uint32_t*)cw, (uint32_t*)chal,
+      (uint32_t*)state_out, K, rows, row_words, nchal, fills, sc, F);
+  return (int)cudaGetLastError();
 }

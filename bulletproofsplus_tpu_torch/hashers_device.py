@@ -207,13 +207,6 @@ class Step(NamedTuple):
 
 MAX_STEPS = 64          # csrc/fs256_chain.cu: a schedule's steps
 MAX_CHAL = 2            # and a step's challenges
-# The kernel's shape: threads a transcript (2: the challenge's halves on a
-# pair of lanes) and whether a second warp runs the absorbs' message
-# schedules (csrc/fs256_chain.cu, SPLIT). Both measured faster on an H100
-# (scripts/bench_torch_fs256_chain.py: the K = 256 replay in 0.12 / 0.18 /
-# 0.52 ms against 0.17 / 0.28 / 0.89 with neither).
-CHAIN_LANES = 2
-CHAIN_SPLIT = True
 
 
 @functools.lru_cache(maxsize=256)
@@ -295,15 +288,14 @@ def fs256_chain_plain(fn, state, base, cw, schedule):
     return chal, state
 
 
-def fs256_chain(fn, state, base, cw, schedule, lanes=None, split=None):
+def fs256_chain(fn, state, base, cw, schedule):
     """Run the fs256 chain `schedule` (a tuple of Step) over K transcripts:
     state (K, 8) int32 start states, base (K,) int32 counters before the
     chain or None for 0, cw (K, rows, words) int32 coordinate words (the
     absorbed points' big-endian affine words, a point a row). Returns
     (challenges (K, S, 8) in Montgomery form of fn's field, the final
     states (K, 8)). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (csrc/fs256_chain.cu) once, or raises. `lanes` and
-    `split` override the kernel's shape (CHAIN_LANES, CHAIN_SPLIT)."""
+    launches the kernel (csrc/fs256_chain.cu) once, or raises."""
     nchal = _check_chain(fn, state, base, cw, schedule)
     if state.device.type == "cpu":
         return fs256_chain_plain(fn, state, base, cw, schedule)
@@ -311,12 +303,10 @@ def fs256_chain(fn, state, base, cw, schedule, lanes=None, split=None):
     if base is not None:
         pairs.append((base, torch.int32))
     kernels.check_operands("fs256_chain", *pairs)
-    return _chain_launch(fn, state, base, cw, schedule, nchal,
-                         CHAIN_LANES if lanes is None else lanes,
-                         CHAIN_SPLIT if split is None else split)
+    return _chain_launch(fn, state, base, cw, schedule, nchal)
 
 
-def _chain_launch(fn, state, base, cw, schedule, nchal, lanes, split):
+def _chain_launch(fn, state, base, cw, schedule, nchal):
     K, dev = state.shape[0], state.device
     st = kernels.aligned(state)
     x = kernels.aligned(cw)
@@ -327,7 +317,7 @@ def _chain_launch(fn, state, base, cw, schedule, nchal, lanes, split):
         kernels.launch("bpp_fs256_chain", st.data_ptr(), 0 if b is None else b.data_ptr(),
                        x.data_ptr(), chal.data_ptr(), out.data_ptr(), K, cw.shape[1],
                        cw.shape[2], schedule_words(schedule), len(schedule),
-                       _chain_field(fn.spec), lanes, int(split), device=dev)
+                       _chain_field(fn.spec), device=dev)
         fs256_chain.launches += 1
     return chal, out
 

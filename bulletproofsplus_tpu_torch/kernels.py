@@ -63,7 +63,7 @@ _FIELD_SIGNATURES = {
 }
 # entry point: argument types before the trailing stream pointer
 SIGNATURES = {**_FIELD_SIGNATURES, "bpp_sha256_words": [_P, _P, _LL, _I],
-              "bpp_fs256_chain": [_P, _P, _P, _P, _P, _LL, _I, _I, _U32P, _I, _U32P, _I, _I],
+              "bpp_fs256_chain": [_P, _P, _P, _P, _P, _LL, _I, _I, _U32P, _I, _U32P],
               **{f"{name}_{fam}": args for name, args in _POINT_SIGNATURES.items()
                  for fam in FAMILIES}}
 

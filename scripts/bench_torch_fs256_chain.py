@@ -1,19 +1,17 @@
 #!/usr/bin/env python3
-"""Time the fs256 chain kernel (csrc/fs256_chain.cu) in each of its shapes
-at the cells' K = 256 schedules, beside the SHA-256 kernel's statement
-absorb, from CUDA graphs on one card.
+"""Time the fs256 chain kernel (csrc/fs256_chain.cu) at the cells' K = 256
+schedules, beside the SHA-256 kernel's statement absorb, from CUDA graphs
+on one card.
 
 For each curve (edwards25519 at m = 16, secp256k1 at m = 64, bls12-381 at
 m = 256; n = 64), on seeded random coordinate words, states and counters:
 the verifier's replay schedule, the prover's statement step, a round step
-and the final step. Every shape of the kernel (one lane or a pair of lanes
-a transcript; with or without a producer warp of message schedules) runs
-in turns, forward then backward, each timed as a CUDA graph of `--reps`
-launches, and must equal the first shape's output word for word; the
-default shape is also held against the plain version on the round step.
-Each line gives ms, µs per compression on a transcript's dependent path,
-the floor of roofline.fs256_chain_ms and the ratio. Last, the card's name
-and power limit (nvidia-smi).
+and the final step, each timed twice as a CUDA graph of `--reps` launches
+and held against the plain version on the round step. Each line gives ms,
+µs per compression on a transcript's dependent path, the floor of
+roofline.fs256_chain_ms and the ratio; then the SHA-256 kernel (one thread
+a message) on the statement absorb's message, µs a block. Last, the card's
+name and power limit (nvidia-smi).
 
 Usage: python3 scripts/bench_torch_fs256_chain.py [--reps R]
 """
@@ -32,7 +30,6 @@ sys.path.insert(0, ROOT)
 
 CELLS = (("edwards25519", 16), ("secp256k1", 64), ("bls12_381", 256))
 N, K = 64, 256
-SHAPES = ((2, False), (1, False), (2, True), (1, True))     # (lanes, split)
 
 
 def main() -> int:
@@ -78,31 +75,21 @@ def main() -> int:
             steps = roofline.chain_steps(hd.schedule_words(sched), len(sched))
             path, total = roofline.chain_compressions(steps, W)
             floor = roofline.fs256_chain_ms(steps, K, x.shape[1], W)[1]
-            outs, ms = {}, {s: [] for s in SHAPES}
-            for s in SHAPES:
-                outs[s] = hd.fs256_chain(fn, state, b, x, sched, *s)
-            first = outs[SHAPES[0]]
-            for s, out in outs.items():
-                if not all(torch.equal(p, q) for p, q in zip(out, first)):
-                    print(f"{name} {what}: shape {s} differs from {SHAPES[0]}", file=sys.stderr)
-                    ok = False
             if what == "round":
+                out = hd.fs256_chain(fn, state, b, x, sched)
                 ref = hd.fs256_chain_plain(fn, state, b, x, sched)
-                if not all(torch.equal(p, q) for p, q in zip(first, ref)):
+                if not all(torch.equal(p, q) for p, q in zip(out, ref)):
                     print(f"{name} {what}: the kernel differs from its plain version",
                           file=sys.stderr)
                     ok = False
-            for s in (*SHAPES, *SHAPES[::-1]):
-                ms[s].append(graph_ms(lambda: hd.fs256_chain(fn, state, b, x, sched, *s),
-                                      args.reps))
-            line = {"curve": name, "m": m, "K": K, "schedule": what,
-                    "path_compressions": path, "compressions": total,
-                    "challenges": sum(c for _, _, c in steps), "floor_ms": floor,
-                    "shapes": [{"lanes": s[0], "split": s[1], "graph_ms": ms[s],
-                                "us_per_path_block": min(ms[s]) * 1e3 / path,
-                                "x_floor": min(ms[s]) / floor} for s in SHAPES]}
-            print(json.dumps(line), flush=True)
-        # the SHA-256 kernel on the statement absorb's message (the parent design)
+            ms = [graph_ms(lambda: hd.fs256_chain(fn, state, b, x, sched), args.reps)
+                  for _ in range(2)]
+            print(json.dumps({"curve": name, "m": m, "K": K, "schedule": what,
+                              "path_compressions": path, "compressions": total,
+                              "challenges": sum(c for _, _, c in steps), "floor_ms": floor,
+                              "graph_ms": ms, "us_per_path_block": min(ms) * 1e3 / path,
+                              "x_floor": min(ms) / floor}), flush=True)
+        # the SHA-256 kernel (one thread a message) on the statement absorb's message
         nw = 9 + (m + 1) * W
         msgs = words(K, nw)
         sha = graph_ms(lambda: hd.sha256_words(msgs, 4 * nw), args.reps)

@@ -407,11 +407,9 @@ def test_sha256_kernel_matches_plain(dev, msg_bytes):
 @pytest.mark.parametrize("K", [1, 3, 256])
 def test_fs256_chain_kernel_matches_plain(dev, c, K):
     """The fs256 chain kernel bit for bit against its plain version (run on
-    CPU copies), in each of its shapes (one lane or a pair of lanes a
-    transcript, with or without the producer warp of message schedules):
-    the verifier's schedule from the default label's state and from a
-    custom label's, and the prover's one-step schedules on counters that
-    start past 0; K = 256 fills more than one warp of pairs."""
+    CPU copies): the verifier's schedule from the default label's state
+    and from a custom label's, and the prover's one-step schedules on
+    counters that start past 0; K = 256 fills many blocks of pairs."""
     from bulletproofsplus_tpu_torch.protocol import fs256
 
     m, logn = 4, 3
@@ -435,11 +433,10 @@ def test_fs256_chain_kernel_matches_plain(dev, c, K):
     for state, b, schedule in cases:
         want = hd.fs256_chain_plain(c.fn, state.cpu(), None if b is None else b.cpu(),
                                     cw.cpu(), schedule)
-        for lanes, split in ((2, False), (1, False), (2, True), (1, True)):
-            before = hd.fs256_chain.launches
-            got = hd.fs256_chain(c.fn, state, b, cw, schedule, lanes, split)
-            assert hd.fs256_chain.launches == before + 1
-            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        before = hd.fs256_chain.launches
+        got = hd.fs256_chain(c.fn, state, b, cw, schedule)
+        assert hd.fs256_chain.launches == before + 1
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 def test_fs256_prove_and_verify_on_card(dev, c):
