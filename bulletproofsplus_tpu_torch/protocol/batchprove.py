@@ -11,10 +11,10 @@ Fs256Transcript, the default, whose chain runs on the card: y and z from A
 and the commitments (the JAX package draws these two on the host,
 :225-241, which here would be a Python decode of K·m points; the bytes are
 the same), then every round's and the final challenge inside the fold
-(protocol/fs256.py), each step one launch of the fs256 chain kernel. Blinds are drawn ahead from any rng in the
-reference's order (every α first, then per proof its (d_L, d_R) per round
-and its four final blinds), the sequence the interactive path draws, so the
-bytes do not depend on it. Other transcripts (ShaTranscript, Merlin) take
+(protocol/fs256.py), each step one launch of the fs256 chain kernel.
+Blinds are drawn ahead from any rng in the reference's order (every α
+first, then per proof its (d_L, d_R) per round and its four final blinds),
+the sequence the interactive path draws, so the bytes do not depend on it. Other transcripts (ShaTranscript, Merlin) take
 the JAX package's interactive path, not ported yet. The JAX package's
 K-chunking (:179-212) bounds TPU compile time and memory and its CPU gate
 (:171-177) is XLA machinery; neither is carried over: the port proves the

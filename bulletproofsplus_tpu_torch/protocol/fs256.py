@@ -40,7 +40,8 @@ def initial_state(m: int, lead, device) -> torch.Tensor:
     """SHA256(FS256_LABEL ‖ be32(m)), the start state of Fs256Transcript(m)
     under the default label, as (*lead, 8) words."""
     state0 = hashlib.sha256(FS256_LABEL + m.to_bytes(4, "big")).digest()
-    return words_tensor(np.frombuffer(state0, ">u4").astype(np.uint32), device).expand(*lead, 8)
+    words = np.frombuffer(state0, ">u4").astype(np.uint32)
+    return words_tensor(words, device).expand(*lead, 8)
 
 
 def affine_words(curve, pts: torch.Tensor) -> torch.Tensor:

@@ -42,9 +42,9 @@ states. Its floor is one transcript's dependent path: every absorb's
 blocks and, per challenge, the state step and one half (the two halves
 are independent) at the chain term above, plus one Montgomery product (the
 digest's reduction takes one product a half, both halves side by side,
-and an add), whose dependent path is FE_MUL_DEPTH operations: each of the
-product's nl rows runs four carry chains of nl operations, all threading
-one carry flag, 4·nl² at INT_DEP_CYCLES each.
+and an add), whose dependent path is `fe_mul_depth` operations: each of
+the product's nl rows runs four carry chains of nl operations, all
+threading one carry flag, 4·nl² at INT_DEP_CYCLES each.
 
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
@@ -129,28 +129,27 @@ def chain_steps(words, nsteps: int) -> list:
              w[CHAIN_STEP_WORDS * i + 4]) for i in range(nsteps)]
 
 
-def fs256_chain_ms(steps, K: int, rows: int, row_words: int) -> tuple:
-    """(bytes time, operations time) in ms of one bpp_fs256_chain launch over
-    K transcripts of `rows` coordinate rows of `row_words` words, `steps` a
-    list of (absorbs, rows absorbed, challenges): the operations time is the
-    larger of one transcript's dependent path and the card's integer rate
-    over every compression of the launch."""
-    nchal = sum(c for _, _, c in steps)
-    absorb = sum(sha256_blocks(4 * (9 + nr * row_words)) for a, nr, _ in steps if a)
-    t_bytes = K * (rows * row_words * 4 + 32 + nchal * 32 + 32) / HBM_BYTES_PER_S * 1e3
-    path = (absorb + 2 * nchal) * 64 * SHA_ROUND_DEPTH + nchal * fe_mul_depth(8)
-    chain = path * INT_DEP_CYCLES / CLOCK_HZ * 1e3
-    rate = (K * (absorb + 3 * nchal) * SHA_BLOCK_OPS
-            + K * nchal * 2 * fe_mul_mads(8)) / INT_MADS_PER_S * 1e3
-    return t_bytes, max(chain, rate)
-
-
 def chain_compressions(steps, row_words: int) -> tuple:
     """(compressions on one transcript's dependent path, compressions a
-    transcript hashes in all) of a chain schedule."""
+    transcript hashes in all) of a chain schedule, `steps` a list of
+    (absorbs, rows absorbed, challenges)."""
     nchal = sum(c for _, _, c in steps)
     absorb = sum(sha256_blocks(4 * (9 + nr * row_words)) for a, nr, _ in steps if a)
     return absorb + 2 * nchal, absorb + 3 * nchal
+
+
+def fs256_chain_ms(steps, K: int, rows: int, row_words: int) -> tuple:
+    """(bytes time, operations time) in ms of one bpp_fs256_chain launch over
+    K transcripts of `rows` coordinate rows of `row_words` words: the
+    operations time is the larger of one transcript's dependent path and
+    the card's integer rate over every compression of the launch."""
+    nchal = sum(c for _, _, c in steps)
+    path, total = chain_compressions(steps, row_words)
+    t_bytes = K * (rows * row_words * 4 + 32 + nchal * 32 + 32) / HBM_BYTES_PER_S * 1e3
+    chain = ((path * 64 * SHA_ROUND_DEPTH + nchal * fe_mul_depth(8)) * INT_DEP_CYCLES
+             / CLOCK_HZ * 1e3)
+    rate = K * (total * SHA_BLOCK_OPS + nchal * 2 * fe_mul_mads(8)) / INT_MADS_PER_S * 1e3
+    return t_bytes, max(chain, rate)
 
 
 def launch_work(name: str, args) -> tuple:
