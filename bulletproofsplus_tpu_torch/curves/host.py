@@ -51,6 +51,10 @@ class HostCurve:
     def is_identity_affine(self, x: int, y: int) -> bool:
         return False
 
+    def is_identity(self, P) -> bool:
+        """Whether the projective point P is the identity."""
+        raise NotImplementedError
+
     def to_affine(self, points: Sequence) -> List[Affine]:
         """Projective points → affine, one shared inversion (Montgomery
         trick). A point with Z = 0 (the Weierstrass identity) is None."""
@@ -125,12 +129,12 @@ class EdwardsHost(HostCurve):
     def is_identity_affine(self, x: int, y: int) -> bool:
         return x == 0 and y == 1
 
+    def is_identity(self, P) -> bool:
+        return P[0] % self.p == 0 and (P[1] - P[2]) % self.p == 0
+
     def in_subgroup(self, A: Affine) -> bool:
         """Whether A lies in the prime-order subgroup: ℓ·A is the identity."""
-        if A is None:
-            return True
-        X, Y, Z, _ = self.mul(self.lift(A), self.order)
-        return X % self.p == 0 and (Y - Z) % self.p == 0
+        return A is None or self.is_identity(self.mul(self.lift(A), self.order))
 
 
 class WeierstrassHost(HostCurve):
@@ -170,12 +174,15 @@ class WeierstrassHost(HostCurve):
         r = pow(a, (self.p + 1) // 4, self.p)
         return r if r * r % self.p == a % self.p else None
 
+    def is_identity(self, P) -> bool:
+        return P[2] % self.p == 0
+
     def in_subgroup(self, A: Affine) -> bool:
         """Whether A lies in the prime-order subgroup: ℓ·A is the identity
         (Z = 0). With cofactor 1 every point on the curve does."""
         if A is None or self.cofactor == 1:
             return True
-        return self.mul(self.lift(A), self.order)[2] % self.p == 0
+        return self.is_identity(self.mul(self.lift(A), self.order))
 
 
 ED25519 = EdwardsHost()

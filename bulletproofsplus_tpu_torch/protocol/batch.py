@@ -17,10 +17,13 @@ The challenges come from the fs256 branch of `_batch_verify_fused`
 (batch.py:157-172) when every transcript is an unused Fs256Transcript (the
 default): protocol/fs256.py::fs256_replay derives them on the card, with no
 host decode or hash. Otherwise the host replays them (range.py::replay_batch).
+`batch_verify_identify` (batch.py:389-433) names the proofs that fail by
+bisecting a failed batch into sub-batches.
 """
 from __future__ import annotations
 
 import secrets
+from typing import List
 
 import torch
 from torch.profiler import record_function
@@ -107,8 +110,10 @@ def batch_verify(curve, pk, n: int, proofs, commitment_lists,
 
     proofs: a ProofBatch or a sequence of RangeProof; commitment_lists: a
     (K, m, C, L) tensor or K equal-length lists of (C, L) points, all on
-    pk's device. transcripts: K transcripts, by default Fs256Transcript(m)
-    each, or DeterministicTranscript(m). rng: callable returning the 128-bit
+    pk's device. transcripts: K fresh transcripts, by default
+    Fs256Transcript(m) each, or of the kinds that proved the proofs
+    (DeterministicTranscript, ShaTranscript, MerlinBppTranscript, or a mix).
+    rng: callable returning the 128-bit
     RLC weights; the default draws them from `secrets`, and must stay
     unpredictable to the prover."""
     if len(proofs) != len(commitment_lists):
@@ -131,3 +136,35 @@ def batch_verify(curve, pk, n: int, proofs, commitment_lists,
     if not verify_stacked(curve, pk.prefix(n * m), n, m, batch, V_all,
                           challenges, W):
         raise VerificationError("batch verification failed")
+
+
+def batch_verify_identify(curve, pk, n: int, proofs, commitment_lists,
+                          transcript_factory=None, rng=None) -> List[int]:
+    """Verify K proofs in one batch and, if it fails, bisect: each half is
+    verified as a batch of its own until the failing proofs are isolated.
+    Returns the sorted indices of the proofs that fail ([] when the batch
+    verifies); a failed batch costs O(bad · log K) sub-batch verifies.
+
+    transcript_factory: index → a FRESH transcript for that proof, called
+    for every dispatch (transcripts are stateful and each dispatch replays
+    them); None gives fresh default transcripts (Fs256Transcript) each
+    time. rng: as batch_verify's."""
+    batch = proofs if isinstance(proofs, ProofBatch) else ProofBatch.from_proofs(proofs)
+    V_all = stack_commitments(commitment_lists)
+    if len(batch) != V_all.shape[0]:
+        raise VerificationError("proof/commitment count mismatch")
+
+    def rec(lo: int, hi: int) -> List[int]:
+        trs = (None if transcript_factory is None
+               else [transcript_factory(i) for i in range(lo, hi)])
+        try:
+            batch_verify(curve, pk, n, batch.take(slice(lo, hi)), V_all[lo:hi],
+                         transcripts=trs, rng=rng)
+            return []
+        except VerificationError:
+            if hi - lo == 1:
+                return [lo]
+            mid = (lo + hi) // 2
+            return rec(lo, mid) + rec(mid, hi)
+
+    return rec(0, len(batch))

@@ -1,10 +1,13 @@
 """Public key (generator set) on a device, with cached fixed-base tables.
 
-Port of bulletproofsplus_tpu/protocol/publickey.py:17-122: g = base point,
-h = 2g, G_i = 3(i+1)g, H_i = 5(i+1)g (the reference's small multiples,
-publickey.rs:23-39, deliberately insecure and kept for parity). The
-multiples are computed on the curve's host arithmetic (curves/host.py) in
-Python ints (running sums, one shared inversion) and uploaded; `fixed_tables`
+Port of bulletproofsplus_tpu/protocol/publickey.py:17-122 and :141-206.
+`new`: g = base point, h = 2g, G_i = 3(i+1)g, H_i = 5(i+1)g (the
+reference's small multiples, publickey.rs:23-39, deliberately insecure and
+kept for parity). `new_secure`: hash-derived generators with unknown
+discrete logs (`hash_to_point`, try-and-increment over SHA-512; the JAX
+package's `_sqrt_mod` is WeierstrassHost.sqrt here, both curves' p being
+3 mod 4). Both are computed on the curve's host arithmetic (curves/host.py)
+in Python ints (one shared inversion back to affine) and uploaded; `fixed_tables`
 builds the window tables of msm/fixed.py on the device once per (pk, mn).
 `commitment` (:124-138) is the committer's host step, as in the JAX package:
 v·g + γ·h in Python ints, encoded onto the key's device.
@@ -12,6 +15,7 @@ v·g + γ·h in Python ints, encoded onto the key's device.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import torch
 
@@ -45,6 +49,20 @@ class PublicKey:
             G.append(hc.add(G[-1], three))
             H.append(hc.add(H[-1], five))
         pts = hc.to_affine([g, hc.add(g, g)] + G[:length] + H[:length])
+        enc = curve.encode_points(pts, device)
+        return cls(curve=curve, g=enc[0], h=enc[1], G_vec=enc[2:2 + length],
+                   H_vec=enc[2 + length:])
+
+    @classmethod
+    def new_secure(cls, curve, length: int, label: bytes = b"bpp-tpu-gens",
+                   device=None) -> "PublicKey":
+        """Hash-derived generators (the JAX package's secure mode, absent
+        from the reference): point i of [g, h, G_0.., H_0..] is
+        hash_to_point(curve, label, i). On `device` (default: the CUDA
+        card; pass "cpu" for the CPU)."""
+        device = entry_device(device)
+        pts = curve.host.to_affine([hash_to_point(curve, label, i)
+                                    for i in range(2 * length + 2)])
         enc = curve.encode_points(pts, device)
         return cls(curve=curve, g=enc[0], h=enc[1], G_vec=enc[2:2 + length],
                    H_vec=enc[2 + length:])
@@ -96,3 +114,35 @@ class PublicKey:
             t = build(self.curve, torch.cat([self.G_vec[:mn], self.H_vec[:mn]]))
             self._fb_tables[mn] = t
         return t
+
+
+def hash_to_point(curve, label: bytes, index: int):
+    """Try-and-increment hash to the curve's prime-order group, as a host
+    projective point (publickey.py:141-178): the candidate
+    SHA-512(label ‖ "|" ‖ name ‖ "|index|ctr") mod p is an x (Weierstrass,
+    with the smaller of ±y) or a y (Edwards, with the even x), skipped
+    when no point has it; the Edwards cofactor 8 and the bls12-381 G1
+    cofactor are cleared, skipping a candidate that lands on the identity."""
+    hc = curve.host
+    p = hc.p
+    ctr = 0
+    while True:
+        digest = hashlib.sha512(
+            label + b"|" + curve.name.encode() + b"|%d|%d" % (index, ctr)).digest()
+        cand = int.from_bytes(digest, "big") % p
+        ctr += 1
+        if curve.COORDS == 3:
+            y = hc.sqrt((cand * cand % p * cand + hc.b) % p)
+            if y is None:
+                continue
+            P = hc.lift((cand, min(y, p - y)))
+            if hc.cofactor != 1:
+                P = hc.mul(P, hc.cofactor)
+        else:
+            try:
+                x = hc.recover_x(cand, 0)
+            except ValueError:
+                continue
+            P = hc.mul(hc.lift((x, cand)), 8)
+        if not hc.is_identity(P):
+            return P

@@ -2,8 +2,8 @@
 
 Port of bulletproofsplus_tpu/protocol/range.py. Verify side: `RangeProof`,
 `ProofBatch`, `_replay_challenges` (:380-394, batched as `replay_batch`
-:662-715: the host replay, for DeterministicTranscript and for fs256
-transcripts the card cannot replay from scratch), the exponent programs
+:662-715: the host replay, for every transcript but an unused fs256 one,
+which the card replays), the exponent programs
 `_vinputs_multiple_batched` (:1017-1114) and `_vinputs_single_prog`
 (:1117-1192, here with the same leading K axis), and `verify` (:209-235,
 :502-542). Prove side: `RangeProver` (:133-146),
@@ -142,12 +142,12 @@ def stack_commitments(commitment_lists) -> torch.Tensor:
 def replay_batch(curve, n: int, m: int, transcripts, batch: "ProofBatch" = None,
                  V_all=None):
     """Host Fiat-Shamir replay of K proofs: (ys, zs, ess, efs) int lists;
-    VerificationError on a zero challenge (range.py:392). Transcripts whose
-    challenges are known ahead look at no point; Fs256Transcript host twins
-    absorb the proofs' points (batch, V_all (K, m, C, L)), each stacked
-    tensor fetched and decoded to affine once, as the JAX package's
-    replay_batch does (range.py:662-715). Other transcripts (ShaTranscript,
-    Merlin) are not ported."""
+    VerificationError on a zero challenge (range.py:392). When every
+    transcript's challenges are known ahead no point is looked at;
+    otherwise the transcripts (Fs256Transcript host twins, ShaTranscript,
+    MerlinBppTranscript, or a mix) absorb the proofs' points (batch, V_all
+    (K, m, C, L)), each stacked tensor fetched and decoded to affine once,
+    as the JAX package's replay_batch does (range.py:662-715)."""
     fn = curve.fn
     K = len(transcripts)
     logn = (n * m).bit_length() - 1
@@ -155,8 +155,7 @@ def replay_batch(curve, n: int, m: int, transcripts, batch: "ProofBatch" = None,
         V = [[None] * m] * K
         A = Aw = B = [None] * K
         Ls = Rs = [[None] * logn] * K
-    elif all(getattr(tr, "challenges_known_ahead", False) or getattr(tr, "device_graph", False)
-             for tr in transcripts):
+    else:
         A, Aw, B = (curve.decode_points(t) for t in (batch.A, batch.A_wip, batch.B))
         L_flat = curve.decode_points(batch.L_vec)
         R_flat = curve.decode_points(batch.R_vec)
@@ -164,10 +163,6 @@ def replay_batch(curve, n: int, m: int, transcripts, batch: "ProofBatch" = None,
         Ls = [L_flat[k * logn:(k + 1) * logn] for k in range(K)]
         Rs = [R_flat[k * logn:(k + 1) * logn] for k in range(K)]
         V = [V_flat[k * m:(k + 1) * m] for k in range(K)]
-    else:
-        raise NotImplementedError(
-            "only DeterministicTranscript and Fs256Transcript replays are "
-            "ported; ShaTranscript and Merlin come with a later slice")
     ys, zs, ess, efs = [], [], [], []
     for k, tr in enumerate(transcripts):
         y, z = tr.challenge_yz(curve, V[k], A[k])
@@ -375,8 +370,8 @@ def prove_setup_single_batched(fn, n: int, y_m, z_m, bits, gamma_m, alpha_m):
 def prove(curve, pk, n: int, prover: RangeProver, transcript=None,
           rng=None) -> RangeProof:
     """One range proof (range/mod.rs:31-55), the K = 1 case of batch_prove.
-    transcript: by default Fs256Transcript(m), or a DeterministicTranscript;
-    rng: blinding source, by default SystemRng."""
+    transcript: by default Fs256Transcript(m), or any transcript batch_prove
+    takes; rng: blinding source, by default SystemRng."""
     from .batchprove import batch_prove
 
     return batch_prove(curve, pk, n, [prover],
@@ -387,7 +382,9 @@ def prove(curve, pk, n: int, prover: RangeProver, transcript=None,
 def verify(curve, proof: RangeProof, pk, n: int, commitment_vec,
            transcript=None) -> None:
     """Raises VerificationError unless the proof verifies (range/mod.rs:57-78).
-    transcript: by default Fs256Transcript(m), or a DeterministicTranscript."""
+    transcript: by default Fs256Transcript(m), or a fresh transcript of the
+    kind that proved it (DeterministicTranscript, ShaTranscript,
+    MerlinBppTranscript)."""
     from .batch import replay_challenges, verify_stacked
 
     V = (commitment_vec if isinstance(commitment_vec, torch.Tensor)

@@ -138,6 +138,13 @@ def chain_compressions(steps, row_words: int) -> tuple:
     return absorb + 2 * nchal, absorb + 3 * nchal
 
 
+def chain_bytes(steps, K: int, rows: int, row_words: int) -> int:
+    """Bytes one bpp_fs256_chain launch moves: the coordinate words and the
+    start states read once, the challenges and the final states written."""
+    nchal = sum(c for _, _, c in steps)
+    return K * (rows * row_words * 4 + 32 + nchal * 32 + 32)
+
+
 def fs256_chain_ms(steps, K: int, rows: int, row_words: int) -> tuple:
     """(bytes time, operations time) in ms of one bpp_fs256_chain launch over
     K transcripts of `rows` coordinate rows of `row_words` words: the
@@ -145,7 +152,7 @@ def fs256_chain_ms(steps, K: int, rows: int, row_words: int) -> tuple:
     the card's integer rate over every compression of the launch."""
     nchal = sum(c for _, _, c in steps)
     path, total = chain_compressions(steps, row_words)
-    t_bytes = K * (rows * row_words * 4 + 32 + nchal * 32 + 32) / HBM_BYTES_PER_S * 1e3
+    t_bytes = chain_bytes(steps, K, rows, row_words) / HBM_BYTES_PER_S * 1e3
     chain = ((path * 64 * SHA_ROUND_DEPTH + nchal * fe_mul_depth(8)) * INT_DEP_CYCLES
              / CLOCK_HZ * 1e3)
     rate = K * (total * SHA_BLOCK_OPS + nchal * 2 * fe_mul_mads(8)) / INT_MADS_PER_S * 1e3
@@ -159,6 +166,11 @@ def launch_work(name: str, args) -> tuple:
     if name == "bpp_sha256_words":
         B, msg_bytes = args[2:4]
         return B * (msg_bytes + 32), 0
+    if name == "bpp_fs256_chain":
+        # the digest's reduction: two products a challenge
+        K, rows, row_words, sched, nsteps = args[5:10]
+        steps = chain_steps(sched, nsteps)
+        return chain_bytes(steps, K, rows, row_words), 2 * K * sum(c for _, _, c in steps)
     if name in ("bpp_mont_mul", "bpp_fe_add", "bpp_fe_sub"):
         n, nl = args[9:11]
         read = _distinct(n, *args[1:4]) + _distinct(n, *args[5:8])

@@ -15,8 +15,9 @@ the subgroup check of :37-65. Fixed length per curve:
   (one host scalar multiplication per point, as on edwards25519).
 
 A proof is [rounds:u8] ‖ A ‖ L_vec ‖ R_vec ‖ A_wip ‖ B ‖ r' ‖ s' ‖ δ' with
-32-byte little-endian scalars. Malformed, off-curve or non-subgroup bytes
-raise FormatError.
+32-byte little-endian scalars; a public key (:230-283) is b"BPPK1" ‖
+len(name):u8 ‖ name ‖ length:u32 big-endian ‖ g ‖ h ‖ G_vec ‖ H_vec.
+Malformed, off-curve or non-subgroup bytes raise FormatError.
 """
 from __future__ import annotations
 
@@ -146,6 +147,42 @@ def proof_to_bytes(curve, proof) -> bytes:
     for s in (w.r_prime, w.s_prime, w.d_prime):
         out += curve.fn.decode(s).to_bytes(SCALAR_LEN, "little")
     return bytes(out)
+
+
+def publickey_to_bytes(curve, pk) -> bytes:
+    """PublicKey → bytes: b"BPPK1" ‖ len(name):u8 ‖ name ‖ length:u32 ‖ g ‖
+    h ‖ G_vec ‖ H_vec, compressed points (one fetch and decode for all)."""
+    name = curve.name.encode()
+    out = bytearray(b"BPPK1" + bytes([len(name)]) + name)
+    out += pk.length.to_bytes(4, "big")
+    pts = curve.decode_points(torch.cat([pk.g[None], pk.h[None], pk.G_vec, pk.H_vec]))
+    for P in pts:
+        out += point_bytes(curve, P)
+    return bytes(out)
+
+
+def publickey_from_bytes(curve, data: bytes, device=None):
+    """Bytes → PublicKey on `device` (default: the CUDA card); FormatError
+    for malformed input, another curve's key, or off-curve or non-subgroup
+    points."""
+    from .protocol.publickey import PublicKey
+
+    device = entry_device(device)
+    name = curve.name.encode()
+    head = b"BPPK1" + bytes([len(name)]) + name
+    if not data.startswith(head):
+        raise FormatError("not a public key for this curve")
+    off = len(head)
+    if len(data) < off + 4:
+        raise FormatError()
+    length = int.from_bytes(data[off:off + 4], "big")
+    off += 4
+    plen = point_len(curve)
+    if len(data) != off + (2 * length + 2) * plen:
+        raise FormatError()
+    enc = curve.encode_points(points_from_bytes(curve, data[off:]), device)
+    return PublicKey(curve=curve, g=enc[0], h=enc[1], G_vec=enc[2:2 + length],
+                     H_vec=enc[2 + length:])
 
 
 def points_from_bytes(curve, data: bytes) -> List[Affine]:

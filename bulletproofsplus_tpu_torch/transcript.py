@@ -1,7 +1,7 @@
 """Fiat-Shamir transcripts and blinding sources of the port.
 
-Port of bulletproofsplus_tpu/transcript.py:28-67, :129-219 and :222-239.
-Fs256Transcript is the sound default (the JAX package's too,
+Port of bulletproofsplus_tpu/transcript.py:28-67, :70-135, :129-219 and
+:222-239. Fs256Transcript is the sound default (the JAX package's too,
 protocol/range.py:196): a SHA-256 chain over word-aligned messages whose
 byte protocol the card evaluates itself (hashers_device.py,
 protocol/fs256.py), so batch verify replays it on the card and batch prove
@@ -10,7 +10,11 @@ DeterministicTranscript and DeterministicRng replay the reference's
 stripped-transcript constants (single y = z = 7, aggregated y = 12, z = 23,
 round challenges 7, final 99; α 7/33, round blinds 4/5, final blinds
 33/44/88/123): the differential test mode, NOT a sound proof system.
-SystemRng draws blinds from `secrets` and is the prover's default rng.
+ShaTranscript (SHA-512, length-framed absorbs) and merlin.py's
+MerlinBppTranscript are the interactive transcripts: host hashes over
+affine points, so the prover fetches each round's L and R from the card
+(protocol/batchprove.py). SystemRng draws blinds from `secrets` and is the
+prover's default rng.
 """
 from __future__ import annotations
 
@@ -37,6 +41,62 @@ class DeterministicTranscript:
 
     def final_challenge(self, curve=None, A=None, B=None) -> int:
         return 99
+
+
+class ShaTranscript:
+    """Domain-separated SHA-512 Fiat-Shamir transcript (the JAX package's,
+    byte for byte). Every absorb is framed by lengths: be16(len(tag)) ‖ tag
+    ‖ be64(len(data)) ‖ data. A point absorbs as the byte 01 ‖ x ‖ y (affine,
+    big-endian, the base field's byte length), the identity as the byte 00. A
+    challenge absorbs its label and be64(counter), then reduces the running
+    SHA-512 digest mod the group order, 0 mapped to 1.
+
+    Points arrive as affine tuples (None for the identity, as the port's
+    host decode gives it) or as the port's point tensors, decoded here."""
+
+    challenges_known_ahead = False
+
+    def __init__(self, m: int, label: bytes = b"bulletproofsplus_tpu"):
+        self._h = hashlib.sha512()
+        self._absorb(b"label", label)
+        self._absorb(b"m", m.to_bytes(8, "big"))
+        self._counter = 0
+
+    def _absorb(self, tag: bytes, data: bytes) -> None:
+        self._h.update(len(tag).to_bytes(2, "big") + tag)
+        self._h.update(len(data).to_bytes(8, "big") + data)
+
+    def _point_bytes(self, curve, P) -> bytes:
+        aff = P if (P is None or isinstance(P, tuple)) else curve.decode_point(P)
+        if aff is None:
+            return b"\x00"
+        nbytes = (curve.fp.p.bit_length() + 7) // 8
+        return b"\x01" + aff[0].to_bytes(nbytes, "big") + aff[1].to_bytes(nbytes, "big")
+
+    def append_point(self, curve, label: bytes, P) -> None:
+        self._absorb(label, self._point_bytes(curve, P))
+
+    def _challenge(self, curve, label: bytes) -> int:
+        self._counter += 1
+        self._absorb(b"challenge", label + self._counter.to_bytes(8, "big"))
+        c = int.from_bytes(self._h.copy().digest(), "big") % curve.fn.p
+        return c if c != 0 else 1
+
+    def challenge_yz(self, curve, commitments, A) -> tuple:
+        for i, V in enumerate(commitments):
+            self.append_point(curve, b"V%d" % i, V)
+        self.append_point(curve, b"A", A)
+        return self._challenge(curve, b"y"), self._challenge(curve, b"z")
+
+    def round_challenge(self, curve, L, R) -> int:
+        self.append_point(curve, b"L", L)
+        self.append_point(curve, b"R", R)
+        return self._challenge(curve, b"e")
+
+    def final_challenge(self, curve, A, B) -> int:
+        self.append_point(curve, b"A_wip", A)
+        self.append_point(curve, b"B", B)
+        return self._challenge(curve, b"e_final")
 
 
 FS256_LABEL = b"bulletproofsplus-tpu fs256 v1   "  # 32 bytes, word-aligned

@@ -76,7 +76,24 @@ final line:
      and a tampered copy must reject; both timed beside the deterministic
      mode's verify of the deterministic bench batch, in the same call, and
      profiled once; one m = 1 prove and verify with the default transcript.
-Last, it prints each curve's batch timings on their own lines, the launches
+ 12. the facade, on edwards25519 at n = 64, m = 16: for each of the four
+     modes (deterministic, fs256, sha, merlin) a RangeProofSystem with
+     hash-derived generators (PublicKey.new_secure) on the card: one
+     statement proven and verified, its proof through its bytes and back,
+     then K statements (bench.py's values and blinds; K = 256 in sha mode,
+     16 in the others) batch-proven and batch-verified with every launch
+     counter at 0 before each (every mode must launch K1's family, K2, K3
+     and K5 proving and K1's family, K2-K4 verifying; fs256 also the
+     chain), a copy with one proof tampered
+     rejected, and batch_verify_identify naming that proof; the sha and
+     merlin K proves run once more under torch.profiler for the host time
+     of each round (decode, hash, upload). Then sha and merlin batches of
+     K = 2 small statements (n = 8, m = 2, DeterministicRng) proven on the
+     card must equal, byte for byte, the same statements proven on the CPU
+     by the port's plain path (a helper process started after the build,
+     `chip_smoke.py --cpu-proofs FILE`, runs it while the card works).
+Last, it prints each curve's batch timings on their own lines, the facade's
+line, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
 K3, K4, K5, SHA and the chain also from a CUDA graph; plain time, bound and
@@ -138,6 +155,17 @@ FS256_PROVE_STAGES = ("bpp::bit_commitment", "bpp::fs256_statement", "bpp::prove
                       "bpp::fold_round", "bpp::fs256_challenge", "bpp::final_ab")
 FS256_SAMPLE = 4        # proofs whose card replay meets the host twin's
 TRACE = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_trace.json")
+FACADE_CURVE, FACADE_N, FACADE_M = "edwards25519", 64, 16
+FACADE_K = {"deterministic": 16, "fs256": 16, "sha": 256, "merlin": 16}
+# an interactive round's host work: the whole round trip, then its parts
+# (the fetch waits for the round's L and R on the card)
+HOST_ROUND_STAGES = ("bpp::host_challenge", "bpp::host_fetch", "bpp::host_decode",
+                     "bpp::host_hash", "bpp::host_upload")
+INTERACTIVE_PROVE_STAGES = ("bpp::bit_commitment", "bpp::host_statement", "bpp::prove_setup",
+                            "bpp::fold_round", "bpp::final_ab", *HOST_ROUND_STAGES)
+# the small statements proven on both the card and the CPU: K, n, m
+PARITY_K, PARITY_N, PARITY_M = 2, 8, 2
+CPU_PROOFS = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_cpu_proofs.json")
 
 
 def log(msg: str) -> None:
@@ -594,6 +622,142 @@ def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
                    "fs256_batch_prove": prove_launches}, stages
 
 
+def parity_batch(kind: str, device):
+    """PARITY_K small statements (values 7k + 3i + 2, blinds 2i + k + 3) over
+    the hash-derived key on `device`, proven in one batch with fresh
+    `kind` transcripts and DeterministicRng: their wire bytes."""
+    from bulletproofsplus_tpu_torch import (
+        DeterministicRng,
+        PublicKey,
+        RangeProver,
+        ShaTranscript,
+        batch_prove,
+        curve_ops,
+        serialize,
+    )
+    from bulletproofsplus_tpu_torch.merlin import MerlinBppTranscript
+
+    curve = curve_ops(FACADE_CURVE)
+    n, m, K = PARITY_N, PARITY_M, PARITY_K
+    pk = PublicKey.new_secure(curve, n * m, device=device)
+    provers = []
+    for k in range(K):
+        pr = RangeProver()
+        for i in range(m):
+            pr.commit(pk, 7 * k + 3 * i + 2, 2 * i + k + 3)
+        provers.append(pr)
+    make = ShaTranscript if kind == "sha" else MerlinBppTranscript
+    batch = batch_prove(curve, pk, n, provers, [make(m) for _ in range(K)],
+                        [DeterministicRng(m)] * K)
+    return [serialize.proof_to_bytes(curve, batch[k]).hex() for k in range(K)]
+
+
+def cpu_proofs(out: str) -> int:
+    """The helper process: the sha and merlin parity batches on the CPU
+    (the plain path the CPU tests hold against golden), written to `out`."""
+    torch.set_num_threads(2)
+    t = time.time()
+    got = {kind: parity_batch(kind, "cpu") for kind in ("sha", "merlin")}
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".tmp", "w") as f:
+        json.dump({"proofs": got, "seconds": time.time() - t}, f)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
+def facade_phase(counted, helper) -> tuple:
+    """Phase 12: the facade in its four modes on the card, then the sha and
+    merlin parity batches against the CPU helper's; returns (line,
+    launches by path)."""
+    from bulletproofsplus_tpu_torch import (
+        Config,
+        RangeProofSystem,
+        VerificationError,
+        stack_commitments,
+    )
+
+    dev = torch.device(DEVICE)
+    n, m = FACADE_N, FACADE_M
+    logn = (n * m).bit_length() - 1
+    out, launches = {"curve": FACADE_CURVE, "n": n, "m": m}, {}
+    for mode in ("deterministic", "fs256", "sha", "merlin"):
+        K = FACADE_K[mode]
+        t = time.time()
+        system = RangeProofSystem(Config(curve=FACADE_CURVE, n=n, m=m, mode=mode), device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t
+        t = time.time()
+        sts = [system.statement([7 * k + 3 * i + 2 for i in range(m)],
+                                gammas=[2 * i + k + 3 for i in range(m)]) for k in range(K)]
+        V = stack_commitments([s.commitments for s in sts])
+        commit_s = time.time() - t
+        proof, prove_ms = once_ms(lambda: system.prove(sts[0]))
+        _, verify_ms = once_ms(lambda: system.verify(proof, sts[0].commitments))
+        system.verify(system.proof_from_bytes(system.proof_to_bytes(proof)), sts[0].commitments)
+        chain = ("chain",) if mode == "fs256" else ()
+        batch, bp_ms, bp_launches = counted(lambda: system.batch_prove(sts),
+                                            (*FIELD_KERNELS, "K2", "K3", "K5", *chain))
+        _, bv_ms, bv_launches = counted(lambda: system.batch_verify(batch, V),
+                                        (*FIELD_KERNELS, "K2", "K3", "K4", *chain))
+        warm_prove = [once_ms(lambda: system.batch_prove(sts))[1] for _ in range(2)]
+        warm_verify = [once_ms(lambda: system.batch_verify(batch, V))[1] for _ in range(2)]
+        bad = batch.take(slice(None))
+        bad.s_prime = bad.s_prime.clone()
+        hit = K // 3
+        bad.s_prime[hit] = system.curve.fn.add(bad.s_prime[hit], system.curve.fn.one(dev))
+        try:
+            system.batch_verify(bad, V)
+        except VerificationError:
+            pass
+        else:
+            raise AssertionError(f"facade {mode}: a tampered batch was accepted")
+        named, identify_ms = once_ms(lambda: system.batch_verify_identify(bad, V))
+        if named != [hit]:
+            raise AssertionError(f"facade {mode}: batch_verify_identify named {named}, "
+                                 f"not [{hit}]")
+        row = {"K": K, "setup_s": setup_s, "commit_s": commit_s, "prove_ms": prove_ms,
+               "verify_ms": verify_ms, "batch_prove_first_ms": bp_ms,
+               "batch_prove_warm_ms": warm_prove, "batch_verify_first_ms": bv_ms,
+               "batch_verify_warm_ms": warm_verify, "identify_ms": identify_ms,
+               "proofs_per_s": K / min(warm_prove) * 1e3,
+               "verify_per_s": K / min(warm_verify) * 1e3}
+        if mode in ("sha", "merlin"):
+            stages, whole = stage_profile(lambda: system.batch_prove(sts),
+                                          INTERACTIVE_PROVE_STAGES)[:2]
+            # a round trip a round and one for the final challenge
+            trips = logn + 1
+            row["host_ms_per_round"] = {k[len("bpp::"):]: stages[k]["host_ms"] / trips
+                                        for k in HOST_ROUND_STAGES}
+            row["host_statement_ms"] = stages["bpp::host_statement"]["host_ms"]
+            row["profiled_prove"] = whole
+        launches[f"facade_{mode}_batch_prove"] = bp_launches
+        launches[f"facade_{mode}_batch_verify"] = bv_launches
+        out[mode] = row
+        log(f"facade {mode}: K={K} batch_prove {bp_ms:.1f} ms (warm {warm_prove}), "
+            f"batch_verify {bv_ms:.1f} ms (warm {warm_verify}), identify named {named} in "
+            f"{identify_ms:.1f} ms; prove {prove_ms:.1f} ms, verify {verify_ms:.1f} ms"
+            + (f"; host ms a round {row['host_ms_per_round']}" if "host_ms_per_round" in row
+               else ""))
+        del system, sts, V, batch, bad
+
+    card = {kind: parity_batch(kind, dev) for kind in ("sha", "merlin")}
+    t = time.time()
+    rc = helper.wait(timeout=900)
+    if rc != 0:
+        raise AssertionError(f"the CPU proof helper exited with {rc}")
+    with open(CPU_PROOFS) as f:
+        cpu = json.load(f)
+    for kind in card:
+        if card[kind] != cpu["proofs"][kind]:
+            raise AssertionError(f"{kind} proofs made on the card differ from the CPU's")
+    log(f"sha and merlin K={PARITY_K} proofs (n={PARITY_N}, m={PARITY_M}) equal the CPU "
+        f"path's byte for byte (helper took {cpu['seconds']:.1f} s, waited "
+        f"{time.time() - t:.1f} s)")
+    out["parity"] = {"K": PARITY_K, "n": PARITY_N, "m": PARITY_M, "equal": True,
+                     "cpu_s": cpu["seconds"]}
+    return {"facade": out}, launches
+
+
 def smoke_curve(name: str, seed: int, held: dict, counted):
     """Phases 2-10 on one curve; returns its timing lines."""
     from bulletproofsplus_tpu_torch import (
@@ -935,7 +1099,11 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu-proofs", metavar="FILE",
+                    help=argparse.SUPPRESS)   # the helper process of phase 12
     args = ap.parse_args()
+    if args.cpu_proofs:
+        return cpu_proofs(args.cpu_proofs)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -959,6 +1127,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
+    if os.path.exists(CPU_PROOFS):
+        os.remove(CPU_PROOFS)
+    helper = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--cpu-proofs", CPU_PROOFS], stdout=subprocess.DEVNULL)
 
     wrappers = {**{k: mont_mul if k == "K1" else getattr(fk, fname)
                    for k, fname in FIELD_KERNELS.items()},
@@ -982,10 +1154,17 @@ def main() -> int:
     # held[(curve, kernel, shape)] =
     #     (max_abs_err, ms, plain_ms, (bound_ms, bound_by), graph_ms or None)
     held, lines, launches, stages = {}, [], {}, {}
-    for i, name in enumerate(CURVE_NAMES):
-        curve_lines, launches[name], stages[name] = smoke_curve(
-            name, args.seed + 10 * i, held, counted)
-        lines += curve_lines
+    try:
+        for i, name in enumerate(CURVE_NAMES):
+            curve_lines, launches[name], stages[name] = smoke_curve(
+                name, args.seed + 10 * i, held, counted)
+            lines += curve_lines
+        facade_line, facade_launches = facade_phase(counted, helper)
+    finally:
+        if helper.poll() is None:
+            helper.kill()
+            helper.wait()
+    launches[FACADE_CURVE].update(facade_launches)
 
     report = []
     for (name, k, shape), (err, ms, plain_ms, (bound_ms, bound_by), g_ms) in held.items():
@@ -1011,6 +1190,7 @@ def main() -> int:
     for line in lines:
         print(json.dumps(line))
     print(json.dumps({"stages": stages}))
+    print(json.dumps(facade_line))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -256,7 +256,8 @@ def ed_statements():
 def test_batch_verify_argument_errors(ed_statements, monkeypatch):
     """Argument errors; without transcripts the verifier replays fresh fs256
     chains on the card (the default, as in the JAX package), and a
-    transcript that is neither known ahead nor fs256 still raises."""
+    transcript that is neither known ahead nor fs256 takes the host replay
+    (range.replay_batch, which decodes the proofs' points)."""
     from bulletproofsplus_tpu_torch.protocol import batch as batch_mod
 
     c, stmts = ed_statements
@@ -279,7 +280,15 @@ def test_batch_verify_argument_errors(ed_statements, monkeypatch):
     class Interactive(bt.DeterministicTranscript):
         challenges_known_ahead = False
 
-    with pytest.raises(NotImplementedError):
+    class HostReplay(Exception):
+        pass
+
+    def host_replay(curve, n, m, transcripts, b, V_all):
+        assert b is batch and V_all is V and len(transcripts) == K
+        raise HostReplay
+
+    monkeypatch.setattr(batch_mod, "replay_batch", host_replay)
+    with pytest.raises(HostReplay):
         bt.batch_verify(c, pk, N, batch, V, [Interactive(2)] * K)
     with pytest.raises(bt.VerificationError):   # n·m does not match the rounds
         bt.batch_verify(c, pk, 16, batch, V, [bt.DeterministicTranscript(2)] * K)

@@ -360,12 +360,20 @@ def test_every_entry_point_has_a_work_model():
     import ctypes
 
     by_type = {kernels._P: 0, kernels._LL: 4, kernels._I: 8}
+    # the chain's schedule argument holds its _I steps (8) of CHAIN_STEP_WORDS
+    # words: one absorb of rows [0, 2) and one challenge each
+    step = [1, 0x4C522020, 0, 2, 1, 0x65202020, 3, 0, 0]
     for name, types in kernels.SIGNATURES.items():
         args = tuple((ctypes.c_uint32 * 16)(*range(1, 17)) if t is kernels._U32P
                      else by_type[t] for t in types)
+        if name == "bpp_fs256_chain":
+            args = chain = (*args[:8], (ctypes.c_uint32 * 72)(*(step * 8)), *args[9:])
         nbytes, muls = roofline.launch_work(name, args)
         assert nbytes > 0 and muls >= 0, name
         assert roofline.bound([(name, args)])[0] > 0
+    # K = 4 transcripts: 8 rows of 8 words and 2 states each, 8 challenges
+    # of 32 bytes and 2 products each
+    assert roofline.launch_work("bpp_fs256_chain", chain) == (4 * (8 * 8 * 4 + 64 + 8 * 32), 64)
     # a (K, 1, 8) operand broadcast over (K, W, 8) is read once, K = 4, W = 6
     bcast = (0, 6, 0, 8)
     assert roofline.launch_work("bpp_fe_add", (0, 24, 8, 0, *bcast, 0, 24, 8, None)) == \
@@ -406,15 +414,18 @@ def test_convert_bls12_381_field_from_jax():
 
 
 def test_port_imports_without_jax():
-    """The port must never import jax: import it with jax blocked."""
+    """The port must never import jax: import it, the facade (config) and
+    the Merlin transcript with jax blocked."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['bulletproofsplus_tpu'] = None; "
             "import bulletproofsplus_tpu_torch as bt; "
             "import bulletproofsplus_tpu_torch.convert, bulletproofsplus_tpu_torch.kernels; "
+            "import bulletproofsplus_tpu_torch.config, bulletproofsplus_tpu_torch.merlin; "
+            "import bulletproofsplus_tpu_torch.__main__; "
             "print(bt.curve_ops().name, bt.curve_ops('secp256k1').COORDS, "
-            "bt.curve_ops('bls12_381').fp.L)")
+            "bt.curve_ops('bls12_381').fp.L, bt.Config().mode, bt.__version__)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "edwards25519 3 12"
+    assert res.stdout.strip() == "edwards25519 3 12 fs256 0.1.0"

@@ -323,7 +323,8 @@ def test_mixed_aggregation_proves_each_alone(monkeypatch):
 def test_batch_prove_argument_errors(monkeypatch):
     """Argument errors; without transcripts the prover draws fresh fs256
     challenges on the card (the default, as in the JAX package), and a
-    transcript that is neither known ahead nor fs256 still raises."""
+    transcript that is neither known ahead nor fs256 takes the interactive
+    fold (host challenges a round)."""
     c = bt.curve_ops("edwards25519")
     pk = bt.PublicKey.new(c, 16, CPU)
     provers = port_provers(pk, [[(1, 2), (3, 4)]])
@@ -347,7 +348,15 @@ def test_batch_prove_argument_errors(monkeypatch):
     class Interactive(bt.DeterministicTranscript):
         challenges_known_ahead = False
 
-    with pytest.raises(NotImplementedError):
+    class InteractiveFold(Exception):
+        pass
+
+    def interactive_fold(curve, transcripts, *tensors):
+        assert curve is c and len(transcripts) == 1 and isinstance(transcripts[0], Interactive)
+        raise InteractiveFold
+
+    monkeypatch.setattr(batchprove, "wip_prove_interactive_batched", interactive_fold)
+    with pytest.raises(InteractiveFold):
         bt.batch_prove(c, pk, N, provers, [Interactive(2)])
     with pytest.raises(InvalidBitsize):
         bt.batch_prove(c, pk, 12, provers, [bt.DeterministicTranscript(2)])
