@@ -14,8 +14,10 @@ the generators are built once, a transcript and an rng minted per proof.
 Modes: "fs256" (the default; its chain runs on the card), "sha" and
 "merlin" (host transcripts; the prover fetches each round's L and R) are
 sound with random blinds; "deterministic" replays the reference's
-constants with fixed blinds, for differential tests only. The facade runs
-on one card: sharding over several (`mesh_devices`) is not ported yet.
+constants with fixed blinds, for differential tests only. With
+`mesh_devices`, batch verification runs sharded over that many devices
+(parallel/mesh.py::default_mesh: distinct cards on CUDA, the CPU listed
+that many times with device="cpu"), as the JAX facade does (config.py:96-101).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from .curves import CURVE_NAMES, curve_ops
 from .device import entry_device
 from .errors import ProvingError
 from .merlin import MerlinBppTranscript
+from .parallel import default_mesh
 from .protocol import (
     ProofBatch,
     PublicKey,
@@ -57,8 +60,8 @@ class Config:
     one of "deterministic", "sha", "fs256" (default) and "merlin" (module
     docstring). hash_generators: derive the key's generators by hashing to
     the curve (sound) instead of the reference's small multiples
-    (publickey.rs:23-39). mesh_devices: shard verification over this many
-    devices; None, one card, is the only value ported."""
+    (publickey.rs:23-39). mesh_devices: shard verification MSMs over this
+    many devices (None = one device)."""
 
     curve: str = "edwards25519"
     n: int = 64
@@ -88,18 +91,21 @@ class Statement:
 
 class RangeProofSystem:
     """A prover and verifier bound to one Config, its generators built once
-    on `device` (default: the CUDA card; pass "cpu" for the CPU)."""
+    on `device` (default: the CUDA card; pass "cpu" for the CPU). With
+    config.mesh_devices, `mesh` is a (1, mesh_devices) mesh: distinct cards
+    on CUDA (raises if the machine has fewer), the CPU listed mesh_devices
+    times on the CPU; batch verification runs over it."""
 
     def __init__(self, config: Config, device=None):
-        if config.mesh_devices is not None:
-            raise NotImplementedError(
-                "mesh_devices: sharding over several cards is not ported yet "
-                "(ROADMAP A.5, distribution); leave it None to run on one card")
         self.config = config
         self.device = entry_device(device)
         self.curve = curve_ops(config.curve)
         make = PublicKey.new_secure if config.hash_generators else PublicKey.new
         self.pk = make(self.curve, config.n * config.m, device=self.device)
+        self.mesh = None
+        if config.mesh_devices:
+            local = None if self.device.type == "cuda" else [self.device] * config.mesh_devices
+            self.mesh = default_mesh(config.mesh_devices, devices=local)
 
     # -- a transcript and an rng per proof ----------------------------------
 
@@ -152,14 +158,16 @@ class RangeProofSystem:
 
     def batch_verify(self, proofs, commitment_lists) -> None:
         batch_verify(self.curve, self.pk, self.config.n, proofs, commitment_lists,
-                     transcripts=[self._transcript() for _ in range(len(proofs))])
+                     transcripts=[self._transcript() for _ in range(len(proofs))],
+                     mesh=self.mesh)
 
     def batch_verify_identify(self, proofs, commitment_lists):
         """The indices of the proofs that fail ([] if all verify), fresh
         transcripts of the configured mode for every sub-batch."""
         return batch_verify_identify(self.curve, self.pk, self.config.n, proofs,
                                      commitment_lists,
-                                     transcript_factory=lambda i: self._transcript())
+                                     transcript_factory=lambda i: self._transcript(),
+                                     mesh=self.mesh)
 
     # -- serialization ----------------------------------------------------------
 

@@ -19,7 +19,10 @@ points the unsigned table holds 16·64·2048 points of 128 bytes: 268 MB; at
 under the 7 GiB budget, so every cell's verifier takes the unsigned table.
 The budget is BPP_FIXED_BASE_MAX_BYTES, as in the JAX package; above it no
 table is built and the generator lanes run on the joint ladder
-(protocol/batch.py::verify_stacked).
+(protocol/batch.py::verify_stacked). Over a mesh, each device holds the
+table of its own slice of the generators (`precompute_slice_tables`), a
+table of its own and not a view of the whole one, since the layout is
+entry-major.
 """
 from __future__ import annotations
 
@@ -71,36 +74,56 @@ def fixed_base_mode(curve, n_points: int, max_bytes: int | None = None):
 
 
 def _window_chain(curve, points, nwin: int):
-    """Q[j] = 2^(4j)·P: (nwin, N, C, L)."""
+    """Q[..., j, :] = 2^(4j)·P: (..., nwin, N, C, L) for points (..., N, C, L)."""
     chain = [points]
     for _ in range(nwin - 1):
         q = chain[-1]
         for _ in range(WINDOW):
             q = curve.dbl(q)
         chain.append(q)
-    return torch.stack(chain)
+    return torch.stack(chain, dim=-4)
 
 
 def precompute_tables(curve, points, nbits: int | None = None):
     """Unsigned table (16, nwin·N, C, L) for base points (N, C, L):
-    T[0] = identity, T[k] = T[k-1] + Q (the JAX package's scan order)."""
+    T[0] = identity, T[k] = T[k-1] + Q (the JAX package's scan order).
+    Leading axes of points are independent tables: (..., 16, nwin·N, C, L)."""
     nbits = nbits or curve.fn.order_bits
-    Q = _window_chain(curve, points, -(-nbits // WINDOW)).flatten(0, 1)
+    Q = _window_chain(curve, points, -(-nbits // WINDOW)).flatten(-4, -3)
     T = [curve.identity_like(Q.shape[:-2], Q.device)]
     for _ in range(1, 1 << WINDOW):
         T.append(curve.add(T[-1], Q))
-    return torch.stack(T)
+    return torch.stack(T, dim=-4)
 
 
 def precompute_tables_signed(curve, points, nbits: int | None = None):
-    """Signed table (8, nwin_s·N, C, L): entry k-1 = k·Q for k ∈ [1, 8]."""
+    """Signed table (8, nwin_s·N, C, L): entry k-1 = k·Q for k ∈ [1, 8];
+    leading axes as precompute_tables'."""
     nbits = nbits or curve.fn.order_bits
     nwin = curve.fn.signed_window_count(nbits, WINDOW)
-    Q = _window_chain(curve, points, nwin).flatten(0, 1)
+    Q = _window_chain(curve, points, nwin).flatten(-4, -3)
     T = [Q]
     for _ in range(1, 1 << (WINDOW - 1)):
         T.append(curve.add(T[-1], Q))
-    return torch.stack(T)
+    return torch.stack(T, dim=-4)
+
+
+def precompute_slice_tables(curve, points, devices, slices, signed: bool = False,
+                            nbits: int | None = None) -> list:
+    """The tables of equal slices of points (N, C, L): slice i holds points
+    [i·N/P, (i+1)·N/P) for P = len(devices), and its table is the one
+    precompute_tables (or _signed) builds from those points alone, built on
+    devices[i]. Returns the tables of the slice indices `slices`, in order.
+    Slices on one device are built together, one pass for all of them."""
+    per = points.shape[0] // len(devices)
+    build = precompute_tables_signed if signed else precompute_tables
+    out = {}
+    for dev in dict.fromkeys(devices[i] for i in slices):
+        mine = [i for i in slices if devices[i] == dev]
+        pts = torch.stack([points[i * per:(i + 1) * per] for i in mine]).to(dev)
+        tables = build(curve, pts, nbits)          # (len(mine), nent, nwin·per, C, L)
+        out.update(zip(mine, tables.unbind(0)))
+    return [out[i] for i in slices]
 
 
 def fixed_msm_partials(curve, scalars, table, nbits: int | None = None):

@@ -125,6 +125,60 @@ def wip_prove_interactive_batched(curve, transcripts, a, b, power_of_y, alpha, G
                 delta_m, eta_m, ynhat_invs, round_challenge, final_challenge)
 
 
+def prove_statements(curve, pk, n: int, m: int, provers, transcripts, alphas, mode: str):
+    """What K statements over pk need before the fold, on pk's device: the
+    bit commitments A (K, C, L) (K5, then K3), y and z, and the setup
+    programs. y and z are known ahead (mode "known"), drawn by the fs256
+    chain on the card ("fs256") or by host transcripts ("host"). Returns
+    (A, (a_vec, b_vec, power_of_y, alpha_hat), state, base): the fs256
+    chain's (K, 8) state after y and z and the (K,) int32 counters before
+    them (None for 0), both None unless the mode is "fs256"."""
+    fn = curve.fn
+    K, dev = len(provers), pk.device
+    state = base = None
+    with record_function("bpp::bit_commitment"):
+        bits = torch.from_numpy(
+            np.stack([bit_decompose(p.v_vec, n, m) for p in provers])).to(dev)
+        A = bit_commitment_batched(curve, fn.encode_plain(alphas, dev), bits,
+                                   pk.G_vec, pk.H_vec, pk.h)
+    if mode == "known":
+        yz = [t.challenge_yz(curve, None, None) for t in transcripts]
+        y_m, z_m = fn.encode([y for y, _ in yz], dev), fn.encode([z for _, z in yz], dev)
+    elif mode == "fs256":
+        with record_function("bpp::fs256_statement"):
+            counts = [t._counter for t in transcripts]
+            base = (None if not any(counts) else
+                    torch.tensor(counts, dtype=torch.int32, device=dev))
+            state = words_tensor(Fs256Transcript.stacked_state_words(transcripts), dev)
+            # one stack of all K·m commitments (a copy launch per 128, not
+            # per proof)
+            V_all = torch.stack([v for p in provers for v in p.commitment_vec]).reshape(
+                K, m, *A.shape[1:])
+            yz, state = absorb_and_draw(curve, state, base, statement_step(m),
+                                        torch.cat([V_all, A[:, None]], dim=1))
+            y_m, z_m = yz[:, 0], yz[:, 1]
+    else:
+        with record_function("bpp::host_statement"):
+            A_aff = curve.decode_points(A)
+            V_aff = curve.decode_points(
+                torch.stack([v for p in provers for v in p.commitment_vec]))
+            yz = [t.challenge_yz(curve, V_aff[k * m:(k + 1) * m], A_aff[k])
+                  for k, t in enumerate(transcripts)]
+            y_m = fn.encode([y % fn.p for y, _ in yz], dev)
+            z_m = fn.encode([z % fn.p for _, z in yz], dev)
+    with record_function("bpp::prove_setup"):
+        alpha_m = fn.encode(alphas, dev)
+        if m == 1:
+            gamma = fn.encode([p.gamma_vec[0] for p in provers], dev)
+            setup = prove_setup_single_batched(fn, n, y_m, z_m, bits, gamma, alpha_m)
+        else:
+            gamma = fn.encode([g for p in provers for g in p.gamma_vec], dev).reshape(
+                K, m, fn.L)
+            setup = prove_setup_multiple_batched(fn, n, m, y_m, z_m, bits, gamma,
+                                                 alpha_m)
+    return A, setup, state, base
+
+
 def batch_prove(curve, pk, n: int, provers: Sequence,
                 transcripts: Optional[Sequence] = None,
                 rngs: Optional[Sequence] = None):
@@ -169,48 +223,12 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
     def rows(vals):
         return fn.encode(vals, dev).reshape(K, -1, fn.L)
 
-    with record_function("bpp::bit_commitment"):
-        bits = torch.from_numpy(
-            np.stack([bit_decompose(p.v_vec, n, m) for p in provers])).to(dev)
-        A = bit_commitment_batched(curve, fn.encode_plain(alphas, dev), bits,
-                                   pk.G_vec, pk.H_vec, pk.h)
-    if known:
-        yz = [t.challenge_yz(curve, None, None) for t in transcripts]
-        y_m, z_m = fn.encode([y for y, _ in yz], dev), fn.encode([z for _, z in yz], dev)
-    elif on_card:
-        with record_function("bpp::fs256_statement"):
-            counts = [t._counter for t in transcripts]
-            base = (None if not any(counts) else
-                    torch.tensor(counts, dtype=torch.int32, device=dev))
-            state = words_tensor(Fs256Transcript.stacked_state_words(transcripts), dev)
-            # one stack of all K·m commitments (a copy launch per 128, not
-            # per proof)
-            V_all = torch.stack([v for p in provers for v in p.commitment_vec]).reshape(
-                K, m, *A.shape[1:])
-            yz, state = absorb_and_draw(curve, state, base, statement_step(m),
-                                        torch.cat([V_all, A[:, None]], dim=1))
-            y_m, z_m = yz[:, 0], yz[:, 1]
-    else:
-        with record_function("bpp::host_statement"):
-            A_aff = curve.decode_points(A)
-            V_aff = curve.decode_points(
-                torch.stack([v for p in provers for v in p.commitment_vec]))
-            yz = [t.challenge_yz(curve, V_aff[k * m:(k + 1) * m], A_aff[k])
-                  for k, t in enumerate(transcripts)]
-            y_m = fn.encode([y % fn.p for y, _ in yz], dev)
-            z_m = fn.encode([z % fn.p for _, z in yz], dev)
+    A, setup, state, base = prove_statements(
+        curve, pk, n, m, provers, transcripts, alphas,
+        "known" if known else "fs256" if on_card else "host")
     with record_function("bpp::prove_setup"):
-        alpha_m = fn.encode(alphas, dev)
-        if m == 1:
-            gamma = fn.encode([p.gamma_vec[0] for p in provers], dev)
-            setup = prove_setup_single_batched(fn, n, y_m, z_m, bits, gamma, alpha_m)
-        else:
-            gamma = rows([g for p in provers for g in p.gamma_vec])
-            setup = prove_setup_multiple_batched(fn, n, m, y_m, z_m, bits, gamma,
-                                                 alpha_m)
-        a_vec, b_vec, power_of_y, alpha_hat = setup
         blinds = rows([x for f in finals for x in f])          # (K, 4, 8)
-        fold_in = (a_vec, b_vec, power_of_y, alpha_hat, pk.G_vec, pk.H_vec, pk.g, pk.h)
+        fold_in = (*setup, pk.G_vec, pk.H_vec, pk.g, pk.h)
         fold_blinds = (rows(dLs), rows(dRs), blinds[:, 0], blinds[:, 1], blinds[:, 2],
                        blinds[:, 3])
     if known:

@@ -8,7 +8,9 @@ discrete logs (`hash_to_point`, try-and-increment over SHA-512; the JAX
 package's `_sqrt_mod` is WeierstrassHost.sqrt here, both curves' p being
 3 mod 4). Both are computed on the curve's host arithmetic (curves/host.py)
 in Python ints (one shared inversion back to affine) and uploaded; `fixed_tables`
-builds the window tables of msm/fixed.py on the device once per (pk, mn).
+builds the window tables of msm/fixed.py on the device once per (pk, mn),
+or over a mesh axis one table a device, each over its slice of the
+generators.
 `commitment` (:124-138) is the committer's host step, as in the JAX package:
 v·g + γ·h in Python ints, encoded onto the key's device.
 """
@@ -94,26 +96,52 @@ class PublicKey:
         V = hc.add(hc.mul(g, v), hc.mul(h, gamma))
         return self.curve.encode_points(hc.to_affine([V]), self.device)[0]
 
-    def fixed_tables(self, mn: int):
+    def fixed_tables(self, mn: int, devices=None):
         """Window tables over [G_vec[:mn] ‖ H_vec[:mn]], built on first use:
         unsigned when it fits the budget of msm.fixed.fixed_base_mode, else
         the half-size signed table; None when neither fits (verify then runs
-        the generator lanes on the ladder)."""
-        t = self._fb_tables.get(mn)
-        if t is None:
-            from ..msm.fixed import (
-                fixed_base_mode,
-                precompute_tables,
-                precompute_tables_signed,
-            )
+        the generator lanes on the ladder).
 
-            mode = fixed_base_mode(self.curve, 2 * mn)
-            if mode is None:
-                return None
-            build = precompute_tables if mode == "unsigned" else precompute_tables_signed
-            t = build(self.curve, torch.cat([self.G_vec[:mn], self.H_vec[:mn]]))
-            self._fb_tables[mn] = t
-        return t
+        With `devices` (a mesh axis of P devices, P dividing 2mn), the list
+        of P tables: table i over generators [i·2mn/P, (i+1)·2mn/P), built on
+        devices[i] and cached per (mn, device, slice). The budget decision
+        is taken on the whole table, as the JAX package takes it
+        (batch.py:318), so a mesh never changes which flavor a key uses."""
+        from ..msm.fixed import (
+            fixed_base_mode,
+            precompute_slice_tables,
+            precompute_tables,
+            precompute_tables_signed,
+        )
+
+        if devices is not None and len(devices) == 1 and torch.device(devices[0]) == self.device:
+            t = self.fixed_tables(mn)        # the one slice is the key's own table
+            return None if t is None else [t]
+        if devices is None:
+            t = self._fb_tables.get(mn)
+            if t is None:
+                mode = fixed_base_mode(self.curve, 2 * mn)
+                if mode is None:
+                    return None
+                build = precompute_tables if mode == "unsigned" else precompute_tables_signed
+                t = build(self.curve, torch.cat([self.G_vec[:mn], self.H_vec[:mn]]))
+                self._fb_tables[mn] = t
+            return t
+        P = len(devices)
+        if (2 * mn) % P:
+            raise ValueError("the mesh axis must divide the 2mn generators")
+        mode = fixed_base_mode(self.curve, 2 * mn)
+        if mode is None:
+            return None
+        per = 2 * mn // P
+        keys = [(mn, str(d), i * per, (i + 1) * per) for i, d in enumerate(devices)]
+        missing = [i for i, k in enumerate(keys) if k not in self._fb_tables]
+        if missing:
+            built = precompute_slice_tables(
+                self.curve, torch.cat([self.G_vec[:mn], self.H_vec[:mn]]),
+                [torch.device(d) for d in devices], missing, signed=mode == "signed")
+            self._fb_tables.update((keys[i], t) for i, t in zip(missing, built))
+        return [self._fb_tables[k] for k in keys]
 
 
 def hash_to_point(curve, label: bytes, index: int):

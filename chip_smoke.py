@@ -92,8 +92,32 @@ final line:
      card must equal, byte for byte, the same statements proven on the CPU
      by the port's plain path (a helper process started after the build,
      `chip_smoke.py --cpu-proofs FILE`, runs it while the card works).
+ 13. distribution (parallel/): meshes over distinct cards where the machine
+     has them, else the first card listed several times (the count of
+     distinct cards is printed). BASELINE config 5 (edwards25519, n = 64,
+     m = 16, K = 1,024 of bench.py's statements), in deterministic and
+     fs256 mode, batch-verified over 1 x 1, 1 x 4 (the tp path, each shard
+     on its own table slice) and 2 x 2 (the dp path, one group a row) with
+     every launch counter at 0 before each, each shard's launches counted
+     (K2, K3 and, with tables, K4 on every shard; fs256 also the chain), a
+     copy with proof 3K/4 (row 1 of 2 x 2) tampered rejected over each,
+     batch_verify_identify over 1 x 4 naming it, each mesh timed in turns
+     beside the unsharded verify and profiled once for each K2/K3/K4
+     launch's device ms; K4 on a shard's table slice, the gather's K3 and
+     K2 at a 2 x 2 shard's shape held against their plain versions; then
+     sharded_prove over 1 x 4 (n = 64, m = 16): its bytes equal prove's,
+     deterministic (also over 1 x 1) and fs256 with one seeded rng (the
+     fs256 proof verifies, its transcript ends in prove's state; K1, K2,
+     K3, K5 and the chain must launch); bls12-381's phase-9 batch (n = 64, m = 256, K = 256,
+     deterministic) over 1 x 4, each shard's table bytes printed, accepted,
+     a tampered copy rejected, timed beside the unsharded verify; the
+     serving demo (python -m bulletproofsplus_tpu_torch.serve_batch) over
+     2 x 2 at K = 8; and two processes of python -m
+     bulletproofsplus_tpu_torch.parallel.worker (a file rendezvous, Gloo,
+     a local 1 x 2 mesh each, global dp = 2; n = 64, m = 16, K = 256), both
+     of which must accept the batch and reject the tampered copy.
 Last, it prints each curve's batch timings on their own lines, the facade's
-line, the launches
+line, the distribution line, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
 K3, K4, K5, SHA and the chain also from a CUDA graph; plain time, bound and
@@ -105,10 +129,12 @@ Usage: python3 chip_smoke.py [--seed S]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +192,19 @@ INTERACTIVE_PROVE_STAGES = ("bpp::bit_commitment", "bpp::host_statement", "bpp::
 # the small statements proven on both the card and the CPU: K, n, m
 PARITY_K, PARITY_N, PARITY_M = 2, 8, 2
 CPU_PROOFS = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_cpu_proofs.json")
+# phase 13, distribution: BASELINE config 5 (BASELINE.md:35) on edwards25519
+DIST_CURVE, DIST_N, DIST_M, DIST_K = "edwards25519", 64, 16, 1024
+DIST_MESHES = {"1x1": (1, 1), "1x4": (4, 1), "2x2": (4, 2)}      # name: (devices, dp)
+DIST_TURNS = 3
+DIST_BLS = "bls12_381"          # its phase-9 batch (n = 64, m = 256, K = 256) over 1 x 4
+DIST_PREFIX = 256               # groups on which the 2 x 2 shard's K2 meets its plain version
+WORKER_N, WORKER_M, WORKER_K = 64, 16, 256
+WORKER_TIMEOUT = 300
+SERVE_K = 8
+# device kernels by name in a profiler trace
+DEVICE_KERNELS = {"K2": "joint_ladder_kernel", "K3": "sum_points_kernel",
+                  "K4": "fixed_lookup_kernel"}
+RENDEZVOUS = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_rendezvous")
 
 
 def log(msg: str) -> None:
@@ -758,6 +797,324 @@ def facade_phase(counted, helper) -> tuple:
     return {"facade": out}, launches
 
 
+def mesh_devices(count: int) -> list:
+    """count mesh devices: distinct cards where the machine has that many,
+    else the first card listed count times."""
+    if count > 1 and torch.cuda.device_count() >= count:
+        return [torch.device("cuda", i) for i in range(count)]
+    return [torch.device(DEVICE)] * count
+
+
+def shard_launches(run, wrappers):
+    """(run's result, one (device, {kernel: launches}) per shard inside it):
+    each call of parallel.sharded_msm.shard_partial, the one function every
+    sharded MSM runs a shard through, with the launches made inside it."""
+    import importlib
+
+    mods = [importlib.import_module(f"bulletproofsplus_tpu_torch.{name}")
+            for name in ("parallel.sharded_msm", "protocol.batch")]
+    inner = mods[0].shard_partial
+    shards = []
+
+    def counting(curve, device, *args, **kw):
+        before = {k: w.launches for k, w in wrappers.items()}
+        part = inner(curve, device, *args, **kw)
+        shards.append((str(device), {k: w.launches - before[k] for k, w in wrappers.items()
+                                     if w.launches != before[k]}))
+        return part
+
+    for mod in mods:
+        mod.shard_partial = counting
+    try:
+        return run(), shards
+    finally:
+        for mod in mods:
+            mod.shard_partial = inner
+
+
+def kernel_ms(run) -> dict:
+    """Device ms of each K2, K3 and K4 launch of one profiled run of `run`,
+    in launch order."""
+    kernels = stage_profile(run, ())[3]
+    return {k: [e["dur"] / 1e3 for e in kernels if name in e["name"]]
+            for k, name in DEVICE_KERNELS.items()}
+
+
+def distribution_phase(counted, wrappers, held, bls) -> tuple:
+    """Phase 13: batch verification of BASELINE config 5 (edwards25519,
+    n = 64, m = 16, K = 1,024) over 1 x 1, 1 x 4 and 2 x 2 meshes in
+    deterministic and fs256 mode beside the unsharded verify; the sharded
+    prover against prove; bls12-381's phase-9 batch over 1 x 4 with sliced
+    tables; the serving demo; two worker processes whose verdicts meet over
+    torch.distributed. Returns (line, launches by curve and path)."""
+    from bulletproofsplus_tpu_torch import (
+        DeterministicRng,
+        DeterministicTranscript,
+        Fs256Transcript,
+        PublicKey,
+        RangeProver,
+        SystemRng,
+        VerificationError,
+        batch_prove,
+        batch_verify,
+        batch_verify_identify,
+        curve_ops,
+        prove,
+        serialize,
+        serve_batch,
+        verify,
+    )
+    from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+    from bulletproofsplus_tpu_torch.msm.engine import joint_width
+    from bulletproofsplus_tpu_torch.parallel import default_mesh, sharded_prove
+
+    class SeededRng(SystemRng):
+        """SystemRng's blinds drawn from random.Random(seed): two proves
+        with one seed draw the same blinds."""
+
+        def __init__(self, order, seed):
+            super().__init__(order)
+            self._rnd = random.Random(seed)
+
+        def _r(self):
+            return self._rnd.randrange(1, self.order)
+
+    t_phase = time.time()
+    dev = torch.device(DEVICE)
+    curve = curve_ops(DIST_CURVE)
+    fn, fp = curve.fn, curve.fp
+    C, L, S = curve.COORDS, fp.L, fn.L
+    nbits = fn.order_bits
+    n, m, K = DIST_N, DIST_M, DIST_K
+    mn = n * m
+    meshes = {name: default_mesh(cnt, dp=dp, devices=mesh_devices(cnt))
+              for name, (cnt, dp) in DIST_MESHES.items()}
+    distinct = max(mesh.distinct_devices() for mesh in meshes.values())
+    for name, mesh in meshes.items():
+        log(f"mesh {name}: {mesh}")
+    log(f"distribution: meshes over {distinct} distinct card(s); the machine has "
+        f"{torch.cuda.device_count()}")
+    out = {"curve": DIST_CURVE, "n": n, "m": m, "K": K, "cards": torch.cuda.device_count(),
+           "distinct_cards": distinct, "meshes": {k: repr(v) for k, v in meshes.items()}}
+    launches = {DIST_CURVE: {}, DIST_BLS: {}}
+
+    # -- (a) BASELINE config 5 over each mesh, deterministic and fs256 ---------
+    t = time.time()
+    pk = PublicKey.new(curve, mn, dev)
+    V = bench_commitments(curve, pk, n, m, K)
+    provers = [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
+                           gamma_vec=[2 * i + k + 3 for i in range(m)],
+                           commitment_vec=list(V[k].unbind(0))) for k in range(K)]
+    log(f"config 5: committed {K * m} bench witnesses in {time.time() - t:.1f} s")
+    hit = 3 * K // 4                    # a proof of the 2 x 2 mesh's row 1
+    wrng = random.Random(13)
+    for mode in ("deterministic", "fs256"):
+        det = mode == "deterministic"
+        make = DeterministicTranscript if det else Fs256Transcript
+        chain = () if det else ("chain",)
+        batch, prove_ms = once_ms(lambda: batch_prove(
+            curve, pk, n, provers, [make(m) for _ in range(K)], [DeterministicRng(m)] * K))
+        bad = batch.take(slice(None))
+        bad.s_prime = bad.s_prime.clone()
+        bad.s_prime[hit] = fn.add(bad.s_prime[hit], fn.one(dev))
+
+        def run(b, mesh):
+            batch_verify(curve, pk, n, b, V, [make(m) for _ in range(K)],
+                         rng=lambda: wrng.getrandbits(128), mesh=mesh)
+
+        row = {"batch_prove_ms": prove_ms}
+        _, row["unsharded_first_ms"], launches[DIST_CURVE][f"dist_{mode}_verify_unsharded"] = (
+            counted(lambda: run(batch, None), (*FIELD_KERNELS, "K2", "K3", "K4", *chain)))
+        for name, mesh in meshes.items():
+            per = ("K2", "K3", "K4") if mesh.shape["dp"] == 1 else ("K2", "K3")
+            (_, shards), first_ms, counts = counted(
+                lambda: shard_launches(lambda: run(batch, mesh), wrappers),
+                (*FIELD_KERNELS, *per, *chain))
+            if (len(shards) != mesh.shape["dp"] * mesh.shape["tp"]
+                    or not all(c.get(k) for _, c in shards for k in per)):
+                raise AssertionError(f"{mode} {name}: not every shard launched {per}: {shards}")
+            launches[DIST_CURVE][f"dist_{mode}_verify_{name}"] = counts
+            try:
+                run(bad, mesh)
+            except VerificationError:
+                pass
+            else:
+                raise AssertionError(f"{mode} {name}: a tampered batch was accepted")
+            row[name] = {"first_ms": first_ms, "shards": shards}
+            log(f"config 5 {mode} {name}: accepted ({first_ms:.1f} ms), tampered proof {hit} "
+                f"rejected; shards {shards}")
+        turns = {"unsharded": [], **{name: [] for name in meshes}}
+        for _ in range(DIST_TURNS):
+            for key in turns:
+                turns[key].append(once_ms(lambda: run(batch, meshes.get(key)))[1])
+        row["warm_ms"] = turns
+        named, ms = once_ms(lambda: batch_verify_identify(
+            curve, pk, n, bad, V, transcript_factory=lambda i: make(m),
+            rng=lambda: wrng.getrandbits(128), mesh=meshes["1x4"]))
+        if named != [hit]:
+            raise AssertionError(f"{mode}: identify over 1x4 named {named}, not [{hit}]")
+        row["identify_1x4"] = {"named": named, "ms": ms}
+        if det:
+            row["kernel_ms"] = {key: kernel_ms(lambda: run(batch, meshes.get(key)))
+                                for key in turns}
+        log(f"config 5 {mode}: warm ms {turns}; identify over 1x4 named {named} in "
+            f"{ms:.1f} ms")
+        out[mode] = row
+        del batch, bad
+
+    # the shards' new shapes against the plain versions: K4 on a 1 x 4
+    # shard's table slice, the gather's K3, K2 on a 2 x 2 row's shard
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    rnd = random.Random(31)
+    tables = pk.fixed_tables(mn, meshes["1x4"].devices[0])
+    gen_s = fn.encode_plain([rnd.randrange(fn.p) for _ in range(2 * mn // 4)], dev)
+    dig = cc.fixed_digits(curve, gen_s, nbits, signed=False)
+    hold(held, (DIST_CURVE, "K4", f"{dig.numel()} lanes (a 1x4 shard's table slice)"),
+         lambda: cc.fixed_lookup_partials(curve, tables[0], dig, False),
+         lambda: cc.fixed_lookup_plain(curve, tables[0], dig, False),
+         lambda ker, ref: affine_err(curve)(cc.sum_points_plain(curve, ker[None]), ref),
+         20, graph=True)
+    four = random_points(curve, 4, 32, dev)[None]
+    hold(held, (DIST_CURVE, "K3", "1 x 4 points (the gather of 4 shards)"),
+         lambda: cc.sum_points_grouped(curve, four), lambda: cc.sum_points_plain(curve, four),
+         affine_err(curve), 20, graph=True)
+    lanes = -(-((K // 2) * (3 + 2 * (mn.bit_length() - 1) + m) + 2 + 2 * mn) // 2)
+    J = joint_width(lanes)
+    G2 = -(-lanes // J)
+    pts = random_points(curve, G2 * J, 33, dev)
+    scal = random_scalars(G2 * J, gen, dev)
+    hold(held, (DIST_CURVE, "K2", f"J={J}, {G2} groups (a 2x2 shard of K={K})"),
+         lambda: cc.joint_ladder_msm_grouped(curve, scal, pts, nbits, J),
+         lambda: cc.joint_ladder_plain(curve, scal[:DIST_PREFIX * J].reshape(DIST_PREFIX, J, S),
+                                       pts[:DIST_PREFIX * J].reshape(DIST_PREFIX, J, C, L),
+                                       nbits),
+         coord_err(fp), 3, prefix=DIST_PREFIX)
+    del tables, pts, scal
+
+    # -- (b) the sharded prover over 1 x 4 -----------------------------------
+    mesh = meshes["1x4"]
+    pr = provers[0]
+    ref = prove(curve, pk, n, pr, DeterministicTranscript(m), DeterministicRng(m))
+    got, sp_ms, counts = counted(
+        lambda: sharded_prove(curve, pk, n, pr, mesh, DeterministicTranscript(m),
+                              DeterministicRng(m)), (*FIELD_KERNELS, "K2", "K3", "K5"))
+    one = sharded_prove(curve, pk, n, pr, meshes["1x1"], DeterministicTranscript(m),
+                        DeterministicRng(m))
+    want = serialize.proof_to_bytes(curve, ref)
+    if serialize.proof_to_bytes(curve, got) != want or serialize.proof_to_bytes(curve, one) != want:
+        raise AssertionError("sharded_prove's bytes differ from prove's (deterministic)")
+    launches[DIST_CURVE]["dist_sharded_prove_deterministic"] = counts
+    sp_warm = [once_ms(lambda: sharded_prove(curve, pk, n, pr, mesh, DeterministicTranscript(m),
+                                             DeterministicRng(m)))[1] for _ in range(2)]
+    p_warm = [once_ms(lambda: prove(curve, pk, n, pr, DeterministicTranscript(m),
+                                    DeterministicRng(m)))[1] for _ in range(2)]
+    t_ref, t_got = Fs256Transcript(m), Fs256Transcript(m)
+    ref = prove(curve, pk, n, pr, t_ref, SeededRng(fn.p, 7))
+    got, fs_ms, counts = counted(
+        lambda: sharded_prove(curve, pk, n, pr, mesh, t_got, SeededRng(fn.p, 7)),
+        (*FIELD_KERNELS, "K2", "K3", "K5", "chain"))
+    if serialize.proof_to_bytes(curve, got) != serialize.proof_to_bytes(curve, ref):
+        raise AssertionError("sharded_prove's bytes differ from prove's (fs256)")
+    if not (t_ref.state_words() == t_got.state_words()).all() or t_ref._counter != t_got._counter:
+        raise AssertionError("sharded_prove's fs256 transcript ends in another state")
+    verify(curve, got, pk, n, pr.commitment_vec)
+    launches[DIST_CURVE]["dist_sharded_prove_fs256"] = counts
+    out["sharded_prove_1x4"] = {"deterministic_first_ms": sp_ms, "deterministic_warm_ms": sp_warm,
+                                "prove_warm_ms": p_warm, "fs256_first_ms": fs_ms,
+                                "bytes_equal": True}
+    log(f"sharded_prove over 1x4: bytes equal prove's in both modes; warm {sp_warm} ms "
+        f"(prove {p_warm} ms); over 1x1 too; the fs256 proof verifies")
+    del pk, V, provers, ref, got
+
+    # -- (c) bls12-381, n = 64, m = 256, K = 256 over 1 x 4 ----------------------
+    bpk, bn, bbatch, bV = bls
+    bcurve = curve_ops(DIST_BLS)
+    bK, bm = bV.shape[:2]
+    mesh = default_mesh(4, devices=mesh_devices(4))
+    btables, table_ms = once_ms(lambda: bpk.fixed_tables(bn * bm, mesh.devices[0]))
+    shard_bytes = [tb.numel() * 4 for tb in btables]
+    log(f"bls12-381 over 1x4: shard tables {[tb.shape for tb in btables]}, "
+        f"{[round(b / 1e9, 3) for b in shard_bytes]} GB each, built in {table_ms:.0f} ms")
+    del btables
+
+    def brun(b, mesh_):
+        batch_verify(bcurve, bpk, bn, b, bV, [DeterministicTranscript(bm)] * bK,
+                     rng=lambda: wrng.getrandbits(128), mesh=mesh_)
+
+    (_, shards), first_ms, counts = counted(
+        lambda: shard_launches(lambda: brun(bbatch, mesh), wrappers),
+        (*FIELD_KERNELS, "K2", "K3", "K4"))
+    if len(shards) != 4 or not all(c.get(k) for _, c in shards for k in ("K2", "K3", "K4")):
+        raise AssertionError(f"bls12-381 1x4: not every shard launched K2, K3, K4: {shards}")
+    launches[DIST_BLS]["dist_deterministic_verify_1x4"] = counts
+    bad = bbatch.take(slice(None))
+    bad.r_prime = bad.r_prime.clone()
+    bad.r_prime[bK // 2] = bcurve.fn.add(bad.r_prime[bK // 2], bcurve.fn.one(dev))
+    try:
+        brun(bad, mesh)
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("bls12-381 1x4: a tampered batch was accepted")
+    bturns = {"unsharded": [], "1x4": []}
+    for _ in range(DIST_TURNS):
+        bturns["unsharded"].append(once_ms(lambda: brun(bbatch, None))[1])
+        bturns["1x4"].append(once_ms(lambda: brun(bbatch, mesh))[1])
+    out["bls12_381_1x4"] = {"K": bK, "n": bn, "m": bm, "shard_table_bytes": shard_bytes,
+                            "table_build_ms": table_ms, "first_ms": first_ms,
+                            "warm_ms": bturns, "shards": shards,
+                            "kernel_ms": kernel_ms(lambda: brun(bbatch, mesh))}
+    log(f"bls12-381 over 1x4: accepted, tampered rejected; warm ms {bturns}")
+    del bad
+
+    # -- the serving demo over a 2 x 2 mesh ------------------------------------
+    t = time.time()
+    devices = ",".join(str(d) for d in mesh_devices(4))
+    with contextlib.redirect_stdout(sys.stderr):
+        serve_batch.main(["--k", str(SERVE_K), "--n", str(n), "--m", str(m), "--mesh-dp", "2",
+                          "--devices", devices])
+    out["serve_batch"] = {"K": SERVE_K, "mesh_dp": 2, "devices": devices,
+                          "seconds": time.time() - t}
+
+    # -- (d) two processes, one dp row each, verdicts over torch.distributed ----
+    if os.path.exists(RENDEZVOUS):
+        os.remove(RENDEZVOUS)
+    local = (["--local-devices", "2"] if torch.cuda.device_count() >= 4
+             else ["--devices", f"{DEVICE},{DEVICE}"])
+    cmd = [sys.executable, "-m", "bulletproofsplus_tpu_torch.parallel.worker",
+           "--init-method", f"file://{RENDEZVOUS}", "--world-size", "2", *local,
+           "--n", str(WORKER_N), "--m", str(WORKER_M),
+           "--K", str(WORKER_K)]
+    t = time.time()
+    procs = [subprocess.Popen([*cmd, "--rank", str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=WORKER_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    worker = {"seconds": time.time() - t, "n": WORKER_N, "m": WORKER_M, "K": WORKER_K}
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            log(f"worker {r}: {line}")
+        if (p.returncode != 0 or f"MULTIHOST OK proc={r}" not in text
+                or "accept: ok" not in text or "reject: ok" not in text):
+            raise AssertionError(f"worker {r} failed (exit {p.returncode})")
+        worker[f"proc{r}"] = {
+            key: float(re.search(rf"{key}: ok \(([0-9.]+) ms\)", text).group(1))
+            for key in ("accept", "reject")}
+        worker["backend"] = re.search(r"backend (\w+)", text).group(1)
+    out["two_processes"] = worker
+    log(f"two processes (backend {worker['backend']}): both accepted and rejected in "
+        f"{worker['seconds']:.1f} s")
+    log(f"phase 13 took {time.time() - t_phase:.1f} s")
+    return {"distribution": out}, launches
+
+
 def smoke_curve(name: str, seed: int, held: dict, counted):
     """Phases 2-10 on one curve; returns its timing lines."""
     from bulletproofsplus_tpu_torch import (
@@ -1093,7 +1450,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
                               "fixture_ms": fix_ms, "single_m1_ms": prove1_ms}},
              *fs_lines]
     return (lines, {"batch_verify": launches, "batch_prove": prove_launches, **fs_launches},
-            stages)
+            stages, (pk, n, proven, V_bench))
 
 
 def main() -> int:
@@ -1156,15 +1513,22 @@ def main() -> int:
     held, lines, launches, stages = {}, [], {}, {}
     try:
         for i, name in enumerate(CURVE_NAMES):
-            curve_lines, launches[name], stages[name] = smoke_curve(
+            curve_lines, launches[name], stages[name], kept = smoke_curve(
                 name, args.seed + 10 * i, held, counted)
             lines += curve_lines
+            if name == DIST_BLS:
+                bls_batch = kept
+            del kept
         facade_line, facade_launches = facade_phase(counted, helper)
     finally:
         if helper.poll() is None:
             helper.kill()
             helper.wait()
     launches[FACADE_CURVE].update(facade_launches)
+    dist_line, dist_launches = distribution_phase(counted, wrappers, held, bls_batch)
+    del bls_batch
+    for name, by_path in dist_launches.items():
+        launches[name].update(by_path)
 
     report = []
     for (name, k, shape), (err, ms, plain_ms, (bound_ms, bound_by), g_ms) in held.items():
@@ -1191,6 +1555,7 @@ def main() -> int:
         print(json.dumps(line))
     print(json.dumps({"stages": stages}))
     print(json.dumps(facade_line))
+    print(json.dumps(dist_line))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -95,13 +95,16 @@ def test_config_validation_matches_jax(kwargs):
 
 
 def test_config_defaults_and_mesh():
-    """The JAX package's defaults (fs256, hash-derived generators); a mesh
-    is not ported and raises before any key is built, naming its item."""
+    """The JAX package's defaults (fs256, hash-derived generators, no
+    mesh); mesh_devices=2 on the CPU gives the facade a (1, 2) mesh that
+    lists the CPU twice, as JAX's default_mesh(2) takes two devices."""
     assert bt.Config() == bt.Config(curve="edwards25519", n=64, m=1, mode="fs256",
                                     hash_generators=True, mesh_devices=None)
     assert dict(vars(bt.Config())) == dict(vars(JaxConfig()))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        bt.RangeProofSystem(bt.Config(n=N, m=M, mesh_devices=2), device=CPU)
+    assert bt.RangeProofSystem(bt.Config(n=N, m=M), device=CPU).mesh is None
+    system = bt.RangeProofSystem(bt.Config(n=N, m=M, mesh_devices=2), device=CPU)
+    assert system.mesh.shape == {"dp": 1, "tp": 2}
+    assert system.mesh.devices == ((torch.device(CPU),) * 2,)
 
 
 # -- the facade in each mode ----------------------------------------------------

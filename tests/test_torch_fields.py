@@ -414,14 +414,17 @@ def test_convert_bls12_381_field_from_jax():
 
 
 def test_port_imports_without_jax():
-    """The port must never import jax: import it, the facade (config) and
-    the Merlin transcript with jax blocked."""
+    """The port must never import jax: import it, the facade (config), the
+    Merlin transcript, the distribution layer with its worker and the
+    serving demo with jax blocked."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['bulletproofsplus_tpu'] = None; "
             "import bulletproofsplus_tpu_torch as bt; "
             "import bulletproofsplus_tpu_torch.convert, bulletproofsplus_tpu_torch.kernels; "
             "import bulletproofsplus_tpu_torch.config, bulletproofsplus_tpu_torch.merlin; "
             "import bulletproofsplus_tpu_torch.__main__; "
+            "import bulletproofsplus_tpu_torch.parallel, bulletproofsplus_tpu_torch.parallel.worker; "
+            "import bulletproofsplus_tpu_torch.serve_batch; "
             "print(bt.curve_ops().name, bt.curve_ops('secp256k1').COORDS, "
             "bt.curve_ops('bls12_381').fp.L, bt.Config().mode, bt.__version__)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
