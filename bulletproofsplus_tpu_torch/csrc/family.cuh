@@ -1,7 +1,7 @@
 // The point family of one build of a point kernel's source.
 //
 // kernels.py compiles each point-kernel source (joint_ladder.cu,
-// sum_points.cu, fixed_lookup.cu, ladder.cu) once per family, with
+// sum_points.cu, fixed_lookup.cu, ladder.cu, pippenger.cu) once per family, with
 // -DBPP_FAMILY=0 (Edwards, 8 words), 1 (Weierstrass, 8 words) or 2
 // (Weierstrass, 12 words), so the families build in parallel. FamilyPt is
 // that family's point type and BPP_ENTRY(bpp_x) the build's C entry point,

@@ -38,6 +38,15 @@ so the kernels read coordinates and scalars at two widths.
   quad adds (one product a thread a round) cut to 2-4 product rounds each;
   see csrc/ladder.cu. It computes K2 at J = 1 in the same order, but keeps
   its own entry point and launch count.
+- The bucket MSM `bucket_msm` ← no Pallas kernel: msm/pippenger.py:75-153
+  is XLA (lax.scan, gather/scatter). Three kernels, each with its wrapper
+  and plain version: `bucket_accumulate` (a thread per (row, slice,
+  window) adds its run of points into its own 2^c buckets), `bucket_merge`
+  (a thread per (row, window, digit) adds a bucket over the slices) and
+  `bucket_reduce` (a thread per (row, window) forms Σ d·bucket_d, the row's
+  last window runs Horner); see csrc/pippenger.cu. Rows may share their
+  points (row r reads point row r mod prow), so K proofs over one key read
+  one copy of its generators.
 
 Tables are entry-major (nent, lanes, C, L) for both versions, where a lane
 is a (window, point) pair, lane = window·N + point.
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -308,3 +318,183 @@ def ladder_scalar_mul(curve, scalars, points, nbits: int):
 
 
 ladder_scalar_mul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The bucket MSM: accumulate, merge, reduce (csrc/pippenger.cu)
+# ---------------------------------------------------------------------------
+
+# bucket memory one accumulate launch may take; more rows split into launches
+BUCKET_BYTES = 2 * 1024**3
+# threads of a block of the bucket kernels (THREADS of csrc/pippenger.cu)
+BUCKET_THREADS = 128
+
+
+def bucket_layout(R: int, N: int, nwin: int, c: int, point_bytes: int, resident: int,
+                  prow: int = 1) -> tuple:
+    """(slices, rows a launch) of a bucket MSM over R rows of N pairs. The
+    slices are as many as leave the card's `resident` accumulate threads no
+    more than full, at most √N (a thread's run, N/slices adds, against the
+    merge's slices adds) and at most what BUCKET_BYTES holds; rows go in
+    chunks (a multiple of prow) where even one slice of every row's buckets
+    would not fit."""
+    per_row = nwin * (1 << c) * point_bytes
+    slices = max(1, min(resident // max(1, R * nwin), math.isqrt(max(1, N)),
+                        BUCKET_BYTES // max(1, R * per_row)))
+    rows = R if R * per_row * slices <= BUCKET_BYTES else max(
+        prow, BUCKET_BYTES // per_row // prow * prow)
+    return slices, rows
+
+
+def bucket_accumulate_plain(curve, scalars, points, nwin: int, c: int, slices: int):
+    """Plain accumulate: scalars (R, N, S) plain form, points (prow, N, C, L)
+    with R a multiple of prow (row r reads point row r mod prow) → buckets
+    (R, slices, nwin, 2^c, C, L). Slice s holds pairs [s·per, (s + 1)·per),
+    per = ⌈N/slices⌉; step t adds pair s·per + t of every (row, slice) into
+    bucket [row, s, w, digit w] for every window w, one gather, one point add
+    over all (row, slice, window) lanes and one scatter (pippenger.py:86-106);
+    a zero digit adds nothing, so bucket 0 stays the identity."""
+    p = curve.plain
+    R, N = scalars.shape[:2]
+    prow = points.shape[0]
+    dev = points.device
+    per = -(-N // slices)
+    digits = curve.fn.scalar_digits(scalars, nwin * c, c).long()          # (R, N, nwin)
+    if slices * per != N:
+        digits = torch.cat([digits, digits.new_zeros(R, slices * per - N, nwin)], dim=1)
+        points = torch.cat([points, p.identity_like((prow, slices * per - N), dev)], dim=1)
+    digits = digits.reshape(R, slices, per, nwin)
+    points = points.reshape(prow, slices, per, *points.shape[-2:])
+    ri = torch.arange(R, device=dev)[:, None, None]
+    si = torch.arange(slices, device=dev)[None, :, None]
+    wi = torch.arange(nwin, device=dev)[None, None, :]
+    prows = torch.arange(R, device=dev) % prow
+    buckets = p.identity_like((R, slices, nwin, 1 << c), dev).clone()
+    for t in range(per):
+        d = digits[:, :, t]                                               # (R, slices, nwin)
+        cur = buckets[ri, si, wi, d]
+        new = p.add(cur, points[prows, :, t][:, :, None])
+        buckets[ri, si, wi, d] = p.select(d == 0, cur, new)
+    return buckets
+
+
+def bucket_accumulate(curve, scalars, points, nwin: int, c: int, slices: int):
+    """Accumulate wrapper: bucket_accumulate_plain's contract."""
+    R, N, S = scalars.shape
+    prow = points.shape[0]
+    C, L = curve.COORDS, curve.fp.L
+    if R % prow or points.shape[1:] != (N, C, L) or not 1 <= c <= 16 or slices < 1:
+        raise ValueError("bucket_accumulate: shapes, window or slices out of range")
+    if points.device.type == "cpu":
+        return bucket_accumulate_plain(curve, scalars, points, nwin, c, slices)
+    kernels = _cuda_ready("pippenger_accumulate", (points, torch.int32), (scalars, torch.int32))
+    pts, scal = kernels.aligned(points), kernels.aligned(scalars)
+    out = torch.empty((R, slices, nwin, 1 << c, C, L), dtype=torch.int32, device=pts.device)
+    if R:
+        kernels.launch(f"bpp_pippenger_accumulate_{curve.FAMILY}", pts.data_ptr(),
+                       scal.data_ptr(), out.data_ptr(), R, N, prow, nwin, c, slices,
+                       _consts_words(curve), device=pts.device)
+        bucket_accumulate.launches += 1
+    return out
+
+
+bucket_accumulate.launches = 0
+
+
+def bucket_merge_plain(curve, buckets):
+    """Plain merge: (R, slices, nwin, B, C, L) → (R, nwin, B, C, L), each
+    bucket added over the slices in slice order."""
+    p = curve.plain
+    acc = buckets[:, 0]
+    for s in range(1, buckets.shape[1]):
+        acc = p.add(acc, buckets[:, s])
+    return acc
+
+
+def bucket_merge(curve, buckets):
+    """Merge wrapper: bucket_merge_plain's contract."""
+    R, slices, nwin, B = buckets.shape[:4]
+    if buckets.device.type == "cpu":
+        return bucket_merge_plain(curve, buckets)
+    kernels = _cuda_ready("pippenger_merge", (buckets, torch.int32))
+    bk = kernels.aligned(buckets)
+    out = torch.empty((R, nwin, B, *bk.shape[-2:]), dtype=torch.int32, device=bk.device)
+    if R:
+        kernels.launch(f"bpp_pippenger_merge_{curve.FAMILY}", bk.data_ptr(), out.data_ptr(), R,
+                       nwin, B.bit_length() - 1, slices, _consts_words(curve),
+                       device=bk.device)
+        bucket_merge.launches += 1
+    return out
+
+
+bucket_merge.launches = 0
+
+
+def bucket_reduce_plain(curve, merged, c: int):
+    """Plain reduce: (R, nwin, 2^c, C, L) → (R, C, L). Per (row, window),
+    Σ_d d·bucket_d as a running sum from 2^c − 1 down to 1; then per row
+    Horner MSB first, c doublings and one add a window
+    (pippenger.py:108-151, the sums by the kernel's order)."""
+    p = curve.plain
+    R, nwin, B = merged.shape[:3]
+    run = tot = p.identity_like((R, nwin), merged.device)
+    for d in range(B - 1, 0, -1):
+        run = p.add(run, merged[:, :, d])
+        tot = p.add(tot, run)
+    acc = p.identity_like((R,), merged.device)
+    for w in range(nwin - 1, -1, -1):
+        for _ in range(c):
+            acc = p.dbl(acc)
+        acc = p.add(acc, tot[:, w])
+    return acc
+
+
+def bucket_reduce(curve, merged, c: int):
+    """Reduce wrapper: bucket_reduce_plain's contract."""
+    R, nwin, B = merged.shape[:3]
+    if B != 1 << c:
+        raise ValueError("bucket_reduce: bucket count is not 2^c")
+    if merged.device.type == "cpu":
+        return bucket_reduce_plain(curve, merged, c)
+    kernels = _cuda_ready("pippenger_reduce", (merged, torch.int32))
+    bk = kernels.aligned(merged)
+    C, L = curve.COORDS, curve.fp.L
+    # the R sums, then scratch: R·nwin window sums and R tickets
+    buf = torch.empty(R * C * L + R * nwin * C * L + R, dtype=torch.int32, device=bk.device)
+    out = buf[:R * C * L].view(R, C, L)
+    if R:
+        kernels.launch(f"bpp_pippenger_reduce_{curve.FAMILY}", bk.data_ptr(), buf.data_ptr(),
+                       buf[R * C * L:].data_ptr(), R, nwin, c, _consts_words(curve),
+                       device=bk.device)
+        bucket_reduce.launches += 1
+    return out
+
+
+bucket_reduce.launches = 0
+
+
+def bucket_msm(curve, scalars, points, nbits: int, c: int):
+    """Σ_i s_ri·P_(r mod prow),i for scalars (R, N, S) plain form and points
+    (prow, N, C, L), R a multiple of prow → (R, C, L): accumulate, merge
+    (only with more than one slice) and reduce, over row chunks of at most
+    BUCKET_BYTES of buckets (bucket_layout)."""
+    R, N = scalars.shape[:2]
+    prow = points.shape[0]
+    nwin = -(-nbits // c)
+    if not 1 <= c <= 16 or (nwin - 1) * c // 32 >= curve.fn.L:
+        raise ValueError("window must be 1 to 16 bits and nbits within the scalar")
+    if points.device.type == "cpu":
+        resident = 1        # one slice: the plain versions' fastest (no merge)
+    else:
+        from .. import kernels
+
+        resident = BUCKET_THREADS * kernels.resident_blocks(
+            "bpp_pippenger_accumulate", curve.FAMILY, points.device)
+    slices, rows = bucket_layout(R, N, nwin, c, curve.COORDS * curve.fp.L * 4, resident, prow)
+    outs = []
+    for r0 in range(0, R, rows):
+        buckets = bucket_accumulate(curve, scalars[r0:r0 + rows], points, nwin, c, slices)
+        merged = buckets[:, 0] if slices == 1 else bucket_merge(curve, buckets)
+        outs.append(bucket_reduce(curve, merged, c))
+        del buckets, merged
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -168,17 +168,22 @@ class FieldOps:
 
     def scalar_digits(self, s, nbits: int | None = None, c: int = 4):
         """Plain-form limbs (..., L) → c-bit digits (..., nwin) int32,
-        LSB first, nbits by default all 32·L bits of the limbs. c must divide
-        32 so no digit straddles two words."""
-        if 32 % c:
-            raise ValueError("window must divide the limb width")
+        LSB first, nbits by default all 32·L bits of the limbs, for any c
+        from 1 to 32. A digit that straddles two words (c = 6, the bucket
+        MSM's window) is read from the 64-bit pair of its word and the next;
+        above the top word the bits are 0."""
+        if not 1 <= c <= 32:
+            raise ValueError("window must be 1 to 32 bits")
         nbits = nbits or self.L * 32
         nwin = -(-nbits // c)
         if (nwin - 1) * c // 32 >= self.L:
             raise ValueError("nbits exceeds limb capacity")
         pos = torch.arange(nwin, device=s.device) * c
-        words = u64(s)[..., pos // 32]
-        return ((words >> (pos % 32)) & ((1 << c) - 1)).to(torch.int32)
+        words = u64(s)
+        words = torch.cat([words, torch.zeros_like(words[..., :1])], dim=-1)
+        pair = words[..., pos // 32] | (words[..., pos // 32 + 1] << 32)
+        # bit 63 of the pair holds its sign; a digit ends at bit 62 at most
+        return ((pair >> (pos % 32)) & ((1 << c) - 1)).to(torch.int32)
 
     def signed_window_count(self, nbits: int | None = None, c: int = 4) -> int:
         """Windows of the signed c-bit decomposition: one more than

@@ -5,7 +5,7 @@ plain C interface, loaded with ctypes; nothing includes PyTorch's headers.
 Each point-kernel source builds once per point family (csrc/family.cuh:
 -DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
 bpp_<kernel>_weierstrass at 8 words a coordinate, 2 gives
-bpp_<kernel>_weierstrass12 at 12), and all fifteen compilations run at
+bpp_<kernel>_weierstrass12 at 12), and all eighteen compilations run at
 once; the field kernels (field_ops.cu: K1's product, add, sub, neg, sum and
 power) hold both of their widths in one unit, and the fs256 transcript's
 chain (fs256_chain.cu) and SHA-256 (sha256.cu), which share sha256.cuh's
@@ -37,7 +37,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("field_ops.cu", "sha256.cu", "fs256_chain.cu", "joint_ladder.cu",
-           "sum_points.cu", "fixed_lookup.cu", "ladder.cu")
+           "sum_points.cu", "fixed_lookup.cu", "ladder.cu", "pippenger.cu")
 POINT_SOURCES = SOURCES[3:]
 FAMILIES = ("edwards", "weierstrass", "weierstrass12")     # BPP_FAMILY 0, 1, 2
 HEADERS = ("field.cuh", "points.cuh", "family.cuh", "ed25519.cuh", "weierstrass.cuh",
@@ -51,6 +51,9 @@ _POINT_SIGNATURES = {
     "bpp_sum_points": [_P, _P, _P, _LL, _LL, _I, _I, _I, _U32P],
     "bpp_fixed_lookup": [_P, _P, _P, _LL, _I, _I, _U32P],
     "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
+    "bpp_pippenger_accumulate": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _U32P],
+    "bpp_pippenger_merge": [_P, _P, _LL, _I, _I, _I, _U32P],
+    "bpp_pippenger_reduce": [_P, _P, _P, _LL, _I, _I, _U32P],
 }
 _OPERAND = [_P, _LL, _LL, _LL]                  # pointer, inner, s_inner, s_outer
 _FIELD_SIGNATURES = {
@@ -69,7 +72,7 @@ SIGNATURES = {**_FIELD_SIGNATURES, "bpp_sha256_words": [_P, _P, _LL, _I],
 
 # point kernels whose entry point bpp_<kernel>_resident_<family>() gives the
 # blocks the card holds at once (kernels that size their grid to it)
-RESIDENT = ("bpp_sum_points", "bpp_fixed_lookup")
+RESIDENT = ("bpp_sum_points", "bpp_fixed_lookup", "bpp_pippenger_accumulate")
 
 _LIB = None
 _ENTRIES: dict = {}

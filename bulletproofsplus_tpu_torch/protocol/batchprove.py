@@ -9,7 +9,11 @@ protocol/wip.py, so every kernel launch serves all K proofs at once.
 
 Challenges come from one of three sources, all through wip.py's one `fold`:
 
-- DeterministicTranscript: known ahead, uploaded before the fold.
+- DeterministicTranscript: known ahead, uploaded before the fold. With
+  every rng's blinds known ahead too and BPP_PROVER=coeff, the
+  coefficient-form prover (protocol/wip_coeff.py) runs in place of the
+  fold, as the JAX package's does (wip.py:659-702, :271-316): the same
+  bytes, every round's L and R an MSM over the key's original generators.
 - Fs256Transcript, the default: its chain runs on the card. y and z come
   from A and the commitments (the JAX package draws these two on the host,
   :225-241, which here would be a Python decode of K·m points; the bytes
@@ -38,6 +42,7 @@ port proves the whole batch in one pass.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -56,7 +61,8 @@ from .range import (
     prove_setup_single_batched,
     validate,
 )
-from .wip import fold, wip_prove_known_batched
+from .wip import fold, prover_variant, wip_prove_known_batched
+from .wip_coeff import wip_prove_coeff_batched
 
 
 def draw_blinds(rngs, logn: int, per_proof: bool):
@@ -236,7 +242,13 @@ def batch_prove(curve, pk, n: int, provers: Sequence,
         for t in transcripts:
             es += [t.round_challenge(curve, None, None) for _ in range(logn)]
             efs.append(t.final_challenge(curve, None, None))
-        L_vec, R_vec, A_wip, B, r_p, s_p, d_p = wip_prove_known_batched(
+        # the JAX package's whole-fold branch (:275-327): every transcript
+        # and every rng known ahead, BPP_FUSE_PROVER not 0; only there does
+        # BPP_PROVER=coeff take the coefficient-form prover
+        whole = (per_proof and logn > 0 and os.environ.get("BPP_FUSE_PROVER") != "0")
+        prog = (wip_prove_coeff_batched if whole and prover_variant() == "coeff"
+                else wip_prove_known_batched)
+        L_vec, R_vec, A_wip, B, r_p, s_p, d_p = prog(
             curve, *fold_in, rows(es), *fold_blinds, fn.encode(efs, dev))
     elif on_card:
         L_vec, R_vec, A_wip, B, r_p, s_p, d_p, state = wip_prove_fs256_batched(

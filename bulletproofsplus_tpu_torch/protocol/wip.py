@@ -22,6 +22,7 @@ fold.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 from torch.profiler import record_function
@@ -164,6 +165,17 @@ def fold(curve, a, b, power_of_y, alpha, G, H, g, h, dLs_m, dRs_m, r_m, s_m,
         ef_m = final_challenge(AB)
         responses = final_responses(fn, a0, b0, alpha, r_m, s_m, delta_m, eta_m, ef_m)
     return (torch.stack(Ls, dim=1), torch.stack(Rs, dim=1), AB[:, 0], AB[:, 1], *responses)
+
+
+def prover_variant() -> str:
+    """Which program proves a batch whose challenges and blinds are known
+    ahead (wip.py:629-650): "coeff", the coefficient-form prover
+    (protocol/wip_coeff.py), when BPP_PROVER=coeff, else "fold", this
+    module's fold. BPP_PROVER=scan|unrolled (and the legacy BPP_PROVER_SCAN)
+    choose between two XLA programs of the one fold, whose scan body exists
+    only to bound TPU compiles, so both mean "fold" here. Read at call time;
+    the fold is the default, as in the JAX package."""
+    return "coeff" if os.environ.get("BPP_PROVER") == "coeff" else "fold"
 
 
 def wip_prove_known_batched(curve, a, b, power_of_y, alpha, G, H, g, h,

@@ -46,6 +46,15 @@ and an add), whose dependent path is `fe_mul_depth` operations: each of
 the product's nl rows runs four carry chains of nl operations, all
 threading one carry flag, 4·nl² at INT_DEP_CYCLES each.
 
+The bucket MSM (csrc/pippenger.cu) counts point adds and doublings at
+the family's products each: accumulate one add a nonzero digit, at most
+R·N·nwin (`launch_work` counts them all; where the scalars are at hand,
+`bucket_adds` counts the run's own nonzero digits and `bound` takes that
+count), reading the points and scalars once and writing every bucket;
+merge (slices − 1) adds a bucket; reduce 2·(2^c − 1) adds a (row, window)
+and Horner's c·nwin doublings and nwin adds a row, reading the buckets of
+digits 1 and up once.
+
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
 read the same formulas off the same launches (`recorded_launches`).
@@ -159,10 +168,18 @@ def fs256_chain_ms(steps, K: int, rows: int, row_words: int) -> tuple:
     return t_bytes, max(chain, rate)
 
 
-def launch_work(name: str, args) -> tuple:
+def bucket_adds(digits) -> int:
+    """Accumulate's point adds for c-bit digits (any shape): one a nonzero
+    digit."""
+    return int((digits != 0).sum())
+
+
+def launch_work(name: str, args, adds: int | None = None) -> tuple:
     """(bytes, Montgomery products) of one launch of C entry point `name`
     with the arguments `args` it was given (pointers first, as in
-    kernels.SIGNATURES)."""
+    kernels.SIGNATURES). `adds`, for a bucket accumulate launch, is the
+    count of its nonzero digits (bucket_adds) in place of every lane's
+    window."""
     if name == "bpp_sha256_words":
         B, msg_bytes = args[2:4]
         return B * (msg_bytes + 32), 0
@@ -187,7 +204,19 @@ def launch_work(name: str, args) -> tuple:
     name, family = name.rsplit("_", 1)
     if family not in FAMILIES:
         raise ValueError(f"no work model for {name}_{family}")
-    add, _, _, pt = FAMILIES[family]
+    add, dbl, _, pt = FAMILIES[family]
+    if name == "bpp_pippenger_accumulate":
+        R, N, prow, nwin, c, slices = args[3:9]
+        return (prow * N * pt + R * N * SCALAR_BYTES + R * slices * nwin * (pt << c),
+                (R * N * nwin if adds is None else adds) * add)
+    if name == "bpp_pippenger_merge":
+        R, nwin, c, slices = args[2:6]
+        return R * nwin * (pt << c) * (slices + 1), R * nwin * (1 << c) * (slices - 1) * add
+    if name == "bpp_pippenger_reduce":
+        R, nwin, c = args[3:6]
+        B = 1 << c
+        return (R * nwin * (B - 1) * pt + R * pt,
+                R * nwin * 2 * (B - 1) * add + R * nwin * (c * dbl + add))
     if name == "bpp_joint_ladder":
         G, J, nwin = args[3:6]
         return (G * J * (pt + SCALAR_BYTES) + G * pt,
@@ -213,9 +242,11 @@ def launch_words(name: str, args) -> int:
     return FAMILIES[name.rsplit("_", 1)[1]][2]
 
 
-def bound(calls) -> tuple:
+def bound(calls, adds: int | None = None) -> tuple:
     """(bound_ms, bound_by) of a sequence of (name, args) launches: the sum
-    of each launch's bound, and whether bytes or operations weigh more."""
+    of each launch's bound, and whether bytes or operations weigh more.
+    `adds` counts the nonzero digits of the one bucket accumulate launch
+    among them (launch_work)."""
     total = t_bytes = t_ops = 0.0
     for name, args in calls:
         if name == "bpp_sha256_words":
@@ -224,7 +255,7 @@ def bound(calls) -> tuple:
             K, rows, row_words, sched, nsteps = args[5:10]
             tb, to = fs256_chain_ms(chain_steps(sched, nsteps), K, rows, row_words)
         else:
-            nbytes, muls = launch_work(name, args)
+            nbytes, muls = launch_work(name, args, adds)
             tb = nbytes / HBM_BYTES_PER_S * 1e3
             to = muls * fe_mul_mads(launch_words(name, args)) / INT_MADS_PER_S * 1e3
         total += max(tb, to)

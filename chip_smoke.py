@@ -116,12 +116,31 @@ final line:
      bulletproofsplus_tpu_torch.parallel.worker (a file rendezvous, Gloo,
      a local 1 x 2 mesh each, global dp = 2; n = 64, m = 16, K = 256), both
      of which must accept the batch and reject the tampered copy.
+ 14. the coefficient-form prover (protocol/wip_coeff.py) and the bucket
+     MSM (csrc/pippenger.cu): bench.py's statements on edwards25519 (n =
+     64, m = 16, K = 256) batch-proven three ways, the fold (BPP_PROVER
+     unset), BPP_PROVER=coeff on the joint ladder and BPP_PROVER=coeff
+     BPP_PIPPENGER=1 (the L/R rows on the buckets), each with every launch
+     counter at 0 before it (K1's family, K2, K3 and K5 must launch, the
+     bucket kernels on the third way only); the three batches' bytes must
+     be equal, each must verify and a tampered copy reject; warm times in
+     three turns and one profile a way (stages, each kernel's launches and
+     device ms). Then secp256k1 (m = 64, K = 16) and bls12-381 (m = 256, K
+     = 4) the same three ways (bytes equal, verify, reject), and `prove` at
+     K = 1 with the coefficient form on the buckets on every curve (bytes
+     equal the fold's). The bucket kernels (accumulate, merge, reduce) are
+     held against their plain versions on one K = 1 L/R row set of the
+     edwards25519 headline (20 rows x 1,026 pairs on the key's
+     generators) on each curve, and on one row of 2mn + 2 pairs with every
+     seventh scalar 0 and a padded last slice; last, timed only, the
+     bucket MSM at the K = 256 verifier's variable-MSM shape (one row of
+     9,986 lanes) beside K2 + K3 there.
 Last, it prints each curve's batch timings on their own lines, the facade's
-line, the distribution line, the launches
+line, the distribution line, the coefficient prover's line, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
-K3, K4, K5, SHA and the chain also from a CUDA graph; plain time, bound and
-launches),
+K3, K4, K5, SHA, the chain and the bucket kernels also from a CUDA graph;
+plain time, bound and launches),
 the card, and the device line.
 
 Usage: python3 chip_smoke.py [--seed S]
@@ -171,7 +190,13 @@ SOURCES = {**{k: (fname, "field_ops.cu", "fields/pallas_ops.py:369")
            # no Pallas kernel: the JAX package's SHA-256 and its fs256 chain
            # are XLA-fused jnp
            "SHA": ("sha256_words", "sha256.cu", "hashers_device.py:123"),
-           "chain": ("fs256_chain", "fs256_chain.cu", "protocol/fs256.py:137")}
+           "chain": ("fs256_chain", "fs256_chain.cu", "protocol/fs256.py:137"),
+           # no Pallas kernel: the JAX package's bucket MSM is XLA (lax.scan
+           # over a gather, a point add and a scatter; the merge; the suffix
+           # sums and Horner)
+           "Pip acc": ("bucket_accumulate", "pippenger.cu", "msm/pippenger.py:94"),
+           "Pip merge": ("bucket_merge", "pippenger.cu", "msm/pippenger.py:112"),
+           "Pip reduce": ("bucket_reduce", "pippenger.cu", "msm/pippenger.py:123")}
 VERIFY_STAGES = ("bpp::exponents", "bpp::rlc_merge", "bpp::variable_msm",
                  "bpp::fixed_msm", "bpp::msm_sum", "bpp::identity_check")
 PROVE_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
@@ -204,6 +229,26 @@ SERVE_K = 8
 # device kernels by name in a profiler trace
 DEVICE_KERNELS = {"K2": "joint_ladder_kernel", "K3": "sum_points_kernel",
                   "K4": "fixed_lookup_kernel"}
+# phase 14, the coefficient-form prover: the headline batch (bench.py's
+# statements, edwards25519, n = 64, m = 16) and the other curves' batches
+COEFF_CURVE, COEFF_K = "edwards25519", 256
+COEFF_OTHER_K = {"secp256k1": 16, "bls12_381": 4}
+COEFF_TURNS = 3
+COEFF_ROWS_N = 1024     # the headline's n·m: its L/R row set, 20 rows x 1,026 pairs
+# each way's switches (None: unset, the JAX package's defaults)
+COEFF_WAYS = {"fold": {"BPP_PROVER": None, "BPP_PIPPENGER": None},
+              "coeff": {"BPP_PROVER": "coeff", "BPP_PIPPENGER": None},
+              "coeff_pippenger": {"BPP_PROVER": "coeff", "BPP_PIPPENGER": "1"}}
+COEFF_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
+                "bpp::coeff_rows", "bpp::rows_msm", "bpp::final_ab")
+BUCKETS = ("Pip acc", "Pip merge", "Pip reduce")
+# device kernels of a prove by name in a profiler trace (K1's product is
+# the elementwise kernel's op 0)
+PROVE_KERNELS = {"K1": r"elementwise_kernel<\d+, 0>",
+                 "K1 family": r"elementwise_kernel<\d+, [123]>|sum_kernel|pow_kernel",
+                 "K2": r"joint_ladder_kernel", "K3": r"sum_points_kernel",
+                 "K5": r"(?<![a-z_])ladder_kernel", "Pip acc": r"bucket_accumulate_kernel",
+                 "Pip merge": r"bucket_merge_kernel", "Pip reduce": r"bucket_reduce_kernel"}
 RENDEZVOUS = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_rendezvous")
 
 
@@ -338,7 +383,8 @@ def coord_err(field):
     return err
 
 
-def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None, graph=False):
+def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None, graph=False,
+         adds=None):
     """Hold one kernel call against its plain version on the same inputs;
     fail if they differ. Records held[key] = (max_abs_err, kernel ms, plain
     ms, (bound_ms, bound_by), graph ms or None), the bound being that of
@@ -346,7 +392,8 @@ def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None, graph=F
     ms is that of back-to-back wrapper calls; with `graph`, also that of the
     same launches replayed from a CUDA graph. With `prefix`, the plain
     version runs on the first `prefix` groups only (independent groups) and
-    meets that prefix of the kernel's output."""
+    meets that prefix of the kernel's output. `adds` is the count of
+    nonzero digits of a bucket accumulate call (roofline.bound)."""
     from bulletproofsplus_tpu_torch import roofline
 
     with roofline.recorded_launches() as calls:
@@ -355,7 +402,7 @@ def hold(held: dict, key, kernel, plain, err_of, reps: int, prefix=None, graph=F
     err = err_of(ker if prefix is None else ker[:prefix], ref)
     ms = cuda_ms(kernel, reps)
     g_ms = graph_ms(kernel, reps) if graph else None
-    held[key] = (err, ms, plain_ms, roofline.bound(calls), g_ms)
+    held[key] = (err, ms, plain_ms, roofline.bound(calls, adds), g_ms)
     what = " ".join(key)
     log(f"{what}: err {err}, kernel {ms:.4f} ms"
         f"{'' if g_ms is None else f' ({g_ms:.4f} ms from a graph)'}, plain {plain_ms:.1f} ms"
@@ -410,6 +457,16 @@ def bench_commitments(curve, pk, n: int, m: int, K: int | None = None):
         row = hc.add(row, step_k)
     V = curve.encode_points(hc.to_affine(pts), pk.device)
     return V.reshape(K, m, *V.shape[1:])
+
+
+def bench_provers(V):
+    """bench.py's RangeProvers over commitments V (K, m, C, L)."""
+    from bulletproofsplus_tpu_torch import RangeProver
+
+    m = V.shape[1]
+    return [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
+                        gamma_vec=[2 * i + k + 3 for i in range(m)],
+                        commitment_vec=list(V[k].unbind(0))) for k in range(V.shape[0])]
 
 
 def carry_runs(p: int, words: int, count: int, rnd) -> list:
@@ -852,7 +909,6 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
         DeterministicTranscript,
         Fs256Transcript,
         PublicKey,
-        RangeProver,
         SystemRng,
         VerificationError,
         batch_prove,
@@ -902,9 +958,7 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
     t = time.time()
     pk = PublicKey.new(curve, mn, dev)
     V = bench_commitments(curve, pk, n, m, K)
-    provers = [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
-                           gamma_vec=[2 * i + k + 3 for i in range(m)],
-                           commitment_vec=list(V[k].unbind(0))) for k in range(K)]
+    provers = bench_provers(V)
     log(f"config 5: committed {K * m} bench witnesses in {time.time() - t:.1f} s")
     hit = 3 * K // 4                    # a proof of the 2 x 2 mesh's row 1
     wrng = random.Random(13)
@@ -1113,6 +1167,251 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
         f"{worker['seconds']:.1f} s")
     log(f"phase 13 took {time.time() - t_phase:.1f} s")
     return {"distribution": out}, launches
+
+
+@contextlib.contextmanager
+def environ(values: dict):
+    """The environment with `values` set (None unsets), restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def device_kernels(kernels) -> dict:
+    """{kernel: (launches, device ms)} of a profiled run's kernel events,
+    by PROVE_KERNELS' names."""
+    out = {}
+    for k, pat in PROVE_KERNELS.items():
+        mine = [e["dur"] for e in kernels if re.search(pat, e["name"])]
+        if mine:
+            out[k] = (len(mine), sum(mine) / 1e3)
+    return out
+
+
+def coeff_rows(curve, pk, n: int, rnd):
+    """One proof's L/R row set of the coefficient prover at n pairs: its
+    (2·log2 n, n + 2) points from the key's generators by the rounds' bit
+    patterns, and seeded scalars of the group order's width with a zero
+    among them."""
+    from bulletproofsplus_tpu_torch.protocol.wip_coeff import _patterns
+
+    G, H = pk.G_vec[:n], pk.H_vec[:n]
+    gh = torch.stack([pk.g, pk.h])
+    pts = []
+    for _, idx_hi, idx_lo, _, _ in _patterns(n, str(G.device)):
+        pts += [torch.cat([G[idx_hi], H[idx_lo], gh]), torch.cat([G[idx_lo], H[idx_hi], gh])]
+    P = torch.stack(pts)
+    S = curve.fn.encode_plain([rnd.randrange(curve.fn.p) for _ in range(P.shape[0] * (n + 2))],
+                              G.device).reshape(P.shape[0], n + 2, curve.fn.L)
+    S[0, 5] = 0
+    return S, P
+
+
+def bucket_holds(held: dict, name: str, curve, S, P, what: str, nbits: int) -> None:
+    """Hold the three bucket kernels (accumulate, merge, reduce) against their
+    plain versions on scalars S (R, N, S) and points P (prow, N, C, L), at
+    the layout bucket_msm takes there; then the whole bucket MSM against the
+    plain stages as affine points. Accumulate and merge add in their plain
+    versions' order (coordinates compared), reduce's sums are compared as
+    affine points."""
+    from bulletproofsplus_tpu_torch import kernels, roofline
+    from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+    from bulletproofsplus_tpu_torch.msm.pippenger import window
+
+    c = window()
+    R, N = S.shape[:2]
+    nwin = -(-nbits // c)
+    resident = cc.BUCKET_THREADS * kernels.resident_blocks(
+        "bpp_pippenger_accumulate", curve.FAMILY, S.device)
+    slices, _ = cc.bucket_layout(R, N, nwin, c, curve.COORDS * curve.fp.L * 4, resident,
+                                 P.shape[0])
+    adds = roofline.bucket_adds(curve.fn.scalar_digits(S, nwin * c, c))
+    shape = f"{what}, {slices} slices, c = {c}"
+    bk = hold(held, (name, "Pip acc", f"{R} x {N} pairs ({shape})"),
+              lambda: cc.bucket_accumulate(curve, S, P, nwin, c, slices),
+              lambda: cc.bucket_accumulate_plain(curve, S, P, nwin, c, slices),
+              coord_err(curve.fp), 5, graph=True, adds=adds)
+    if slices > 1:
+        merged = hold(held, (name, "Pip merge", f"{R} x {nwin} x {1 << c} buckets ({shape})"),
+                      lambda: cc.bucket_merge(curve, bk),
+                      lambda: cc.bucket_merge_plain(curve, bk), coord_err(curve.fp), 5,
+                      graph=True)
+    else:
+        merged = bk[:, 0]
+    hold(held, (name, "Pip reduce", f"{R} x {nwin} windows ({shape})"),
+         lambda: cc.bucket_reduce(curve, merged, c),
+         lambda: cc.bucket_reduce_plain(curve, merged, c), affine_err(curve), 5, graph=True)
+    got = cc.bucket_msm(curve, S, P, nbits, c)
+    err = affine_err(curve)(got, cc.bucket_reduce_plain(curve, merged, c))
+    if err:
+        raise AssertionError(f"{name} bucket MSM ({what}) disagrees with its plain stages")
+    del bk, merged
+
+
+def coeff_phase(counted, held, kept) -> tuple:
+    """Phase 14: the coefficient-form prover. The headline batch
+    (edwards25519, n = 64, m = 16, K = 256, bench.py's statements) proven by
+    the fold, by BPP_PROVER=coeff on the ladder and with the bucket MSM
+    (BPP_PIPPENGER=1): bytes equal, each batch verifies and a tampered copy
+    rejects, warm times in turns, one profile a way; the other curves'
+    batches (K = 16, 4) both ways and `prove` at K = 1 on every curve;
+    the bucket kernels against their plain versions at a headline L/R row
+    set on each curve and at a row with zero scalars and a padded tail;
+    and, timed only, the bucket MSM at the verifier's variable-MSM shape
+    beside K2 + K3. Returns (line, launches by curve and path)."""
+    from bulletproofsplus_tpu_torch import (
+        DeterministicRng,
+        DeterministicTranscript,
+        VerificationError,
+        batch_prove,
+        batch_verify,
+        curve_ops,
+        prove,
+        roofline,
+        serialize,
+    )
+    from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
+    from bulletproofsplus_tpu_torch.msm import msm
+    from bulletproofsplus_tpu_torch.msm.engine import joint_width
+    from bulletproofsplus_tpu_torch.msm.pippenger import window
+
+    t_phase = time.time()
+    dev = torch.device(DEVICE)
+    out, launches = {}, {}
+    wrng = random.Random(14)
+    rnd = random.Random(1414)
+    path_kernels = (*FIELD_KERNELS, "K2", "K3", "K5")
+
+    def wire(curve, batch):
+        return [serialize.proof_to_bytes(curve, batch[k]) for k in range(batch.A.shape[0])]
+
+    for name in (COEFF_CURVE, *COEFF_OTHER_K):
+        curve = curve_ops(name)
+        fn = curve.fn
+        pk, n, _, V_all = kept[name]
+        K = COEFF_K if name == COEFF_CURVE else COEFF_OTHER_K[name]
+        m = V_all.shape[1]
+        V = V_all[:K]
+        provers = bench_provers(V)
+        launches[name] = {}
+        row = {"K": K, "n": n, "m": m}
+
+        def run(K=K, provers=provers):
+            return batch_prove(curve, pk, n, provers, [DeterministicTranscript(m)] * K,
+                               [DeterministicRng(m)] * K)
+
+        batches = {}
+        for way, env in COEFF_WAYS.items():
+            with environ(env):
+                needed = path_kernels + (("Pip acc", "Pip reduce") if "pippenger" in way else ())
+                batch, first_ms, counts = counted(run, needed)
+            if "pippenger" not in way and any(counts[k] for k in BUCKETS):
+                raise AssertionError(f"{name} {way}: a bucket kernel launched: {counts}")
+            launches[name][f"coeff_{way}_prove"] = counts
+            batches[way] = batch
+            row[way] = {"first_ms": first_ms}
+            log(f"{name} {way} K={K}: proven in {first_ms:.1f} ms; launches {counts}")
+        ref = wire(curve, batches["fold"])
+        for way, batch in batches.items():
+            if wire(curve, batch) != ref:
+                raise AssertionError(f"{name} {way}: bytes differ from the fold prover's")
+            trs = [DeterministicTranscript(m)] * K
+            batch_verify(curve, pk, n, batch, V, trs, rng=lambda: wrng.getrandbits(128))
+            bad = batch.take(slice(None))
+            bad.L_vec = bad.L_vec.clone()
+            bad.L_vec[K // 2, 0] = curve.dbl(bad.L_vec[K // 2, 0])
+            try:
+                batch_verify(curve, pk, n, bad, V, trs, rng=lambda: wrng.getrandbits(128))
+            except VerificationError:
+                pass
+            else:
+                raise AssertionError(f"{name} {way}: a tampered batch was accepted")
+        log(f"{name}: the three ways' bytes are equal; each verifies, each tampered copy "
+            "rejects")
+        if name == COEFF_CURVE:
+            turns = {way: [] for way in COEFF_WAYS}
+            for _ in range(COEFF_TURNS):
+                for way, env in COEFF_WAYS.items():
+                    with environ(env):
+                        turns[way].append(once_ms(run)[1])
+            for way, env in COEFF_WAYS.items():
+                with environ(env):
+                    per_stage, whole, _, kern = stage_profile(run, COEFF_STAGES)
+                row[way].update({"warm_ms": turns[way], "best_ms": min(turns[way]),
+                                 "spread_ms": max(turns[way]) - min(turns[way]),
+                                 "stages": per_stage, "whole": whole,
+                                 "device_kernels": device_kernels(kern)})
+                log(f"{name} {way}: warm {[round(x, 1) for x in turns[way]]} ms; stages "
+                    f"{per_stage}; kernels {row[way]['device_kernels']}")
+        del batches
+        # prove at K = 1, coefficient form on the buckets
+        with environ(COEFF_WAYS["coeff_pippenger"]):
+            one, one_ms, counts = counted(
+                lambda: prove(curve, pk, n, provers[0], DeterministicTranscript(m),
+                              DeterministicRng(m)), path_kernels + BUCKETS)
+        if serialize.proof_to_bytes(curve, one) != ref[0]:
+            raise AssertionError(f"{name} prove K=1 (coeff, buckets): bytes differ from the fold's")
+        launches[name]["coeff_pippenger_prove_k1"] = counts
+        row["prove_k1_ms"] = one_ms
+        log(f"{name} prove K=1 (coeff, buckets): bytes equal the fold's ({one_ms:.1f} ms); "
+            f"launches {counts}")
+        out[name] = row
+
+        # the kernels against their plain versions: one headline L/R row set
+        # (20 rows x 1,026 pairs, K = 1) on the key's generators
+        S, P = coeff_rows(curve, pk, COEFF_ROWS_N, rnd)
+        bucket_holds(held, name, curve, S, P, "a K = 1 L/R row set", fn.order_bits)
+        if name == COEFF_CURVE:
+            # a row with zero scalars and a padded tail: the A row's 2mn + 2 pairs
+            A_pts = torch.cat([pk.G_vec, pk.H_vec, pk.g[None], pk.h[None]])[None]
+            A_s = fn.encode_plain([rnd.randrange(fn.p) if i % 7 else 0
+                                   for i in range(A_pts.shape[1])], dev)[None]
+            bucket_holds(held, name, curve, A_s, A_pts, "one row, every 7th scalar 0",
+                         fn.order_bits)
+        del S, P
+
+    # -- the verifier's variable-MSM shape, timed only (not routed) ----------
+    curve = curve_ops(COEFF_CURVE)
+    fn = curve.fn
+    _, n, _, V_all = kept[COEFF_CURVE]
+    mn = n * V_all.shape[1]
+    lanes = K_BATCH * (3 + 2 * (mn.bit_length() - 1) + V_all.shape[1]) + 2
+    J = joint_width(lanes)
+    pts = random_points(curve, lanes, rnd.randrange(1 << 30), dev)
+    scal = fn.encode_plain([rnd.randrange(fn.p) for _ in range(lanes)], dev)
+    c = window()
+    nbits = fn.order_bits
+    with roofline.recorded_launches() as b_calls:
+        got = cc.bucket_msm(curve, scal[None], pts[None], nbits, c)
+    with roofline.recorded_launches() as l_calls:
+        want = msm(curve, scal, pts, nbits)
+    if affine_ints(curve, got) != affine_ints(curve, want[None]):
+        raise AssertionError("the bucket MSM at the verify shape differs from K2 + K3")
+    adds = roofline.bucket_adds(fn.scalar_digits(scal, -(-nbits // c) * c, c))
+    out["verify_shape"] = {
+        "curve": COEFF_CURVE, "lanes": lanes, "window": c,
+        "bucket_ms": cuda_ms(lambda: cc.bucket_msm(curve, scal[None], pts[None], nbits, c), 10),
+        "bucket_graph_ms": graph_ms(lambda: cc.bucket_msm(curve, scal[None], pts[None],
+                                                         nbits, c), 10),
+        "bucket_bound_ms": roofline.bound(b_calls, adds)[0],
+        "bucket_launches": [name for name, _ in b_calls],
+        "k2_k3_ms": cuda_ms(lambda: msm(curve, scal, pts, nbits), 10),
+        "k2_k3_graph_ms": graph_ms(lambda: msm(curve, scal, pts, nbits), 10),
+        "k2_k3_bound_ms": roofline.bound(l_calls)[0], "J": J}
+    log(f"verify shape ({lanes} lanes): {out['verify_shape']}")
+    log(f"phase 14 took {time.time() - t_phase:.1f} s")
+    return {"coeff_prover": out}, launches
 
 
 def smoke_curve(name: str, seed: int, held: dict, counted):
@@ -1387,10 +1686,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     # -- 9. bench.py's batch: prove K = 256, then verify it -----------------
     t = time.time()
     V_bench = bench_commitments(curve, pk, n, m)
-    bench = [RangeProver(v_vec=[7 * k + 3 * i + 2 for i in range(m)],
-                         gamma_vec=[2 * i + k + 3 for i in range(m)],
-                         commitment_vec=list(V_bench[k].unbind(0)))
-             for k in range(K_BATCH)]
+    bench = bench_provers(V_bench)
     for k, i in ((0, 0), (0, m - 1), (K_BATCH - 1, 0), (K_BATCH // 2, m // 2)):
         if not torch.equal(V_bench[k, i], pk.commitment(bench[k].v_vec[i], bench[k].gamma_vec[i])):
             raise AssertionError(f"bench commitment ({k}, {i}) differs from PublicKey.commitment")
@@ -1494,7 +1790,8 @@ def main() -> int:
                 "K2": cc.joint_ladder_msm_grouped,
                 "K3": cc.sum_points_grouped, "K4": cc.fixed_lookup_partials,
                 "K5": cc.ladder_scalar_mul, "SHA": hd.sha256_words,
-                "chain": hd.fs256_chain}
+                "chain": hd.fs256_chain, "Pip acc": cc.bucket_accumulate,
+                "Pip merge": cc.bucket_merge, "Pip reduce": cc.bucket_reduce}
 
     def counted(run, needed):
         """Run `run` once with every launch counter at 0 just before it;
@@ -1510,24 +1807,24 @@ def main() -> int:
 
     # held[(curve, kernel, shape)] =
     #     (max_abs_err, ms, plain_ms, (bound_ms, bound_by), graph_ms or None)
-    held, lines, launches, stages = {}, [], {}, {}
+    held, lines, launches, stages, kept = {}, [], {}, {}, {}
     try:
         for i, name in enumerate(CURVE_NAMES):
-            curve_lines, launches[name], stages[name], kept = smoke_curve(
+            curve_lines, launches[name], stages[name], kept[name] = smoke_curve(
                 name, args.seed + 10 * i, held, counted)
             lines += curve_lines
-            if name == DIST_BLS:
-                bls_batch = kept
-            del kept
         facade_line, facade_launches = facade_phase(counted, helper)
     finally:
         if helper.poll() is None:
             helper.kill()
             helper.wait()
     launches[FACADE_CURVE].update(facade_launches)
-    dist_line, dist_launches = distribution_phase(counted, wrappers, held, bls_batch)
-    del bls_batch
+    dist_line, dist_launches = distribution_phase(counted, wrappers, held, kept[DIST_BLS])
     for name, by_path in dist_launches.items():
+        launches[name].update(by_path)
+    coeff_line, coeff_launches = coeff_phase(counted, held, kept)
+    del kept
+    for name, by_path in coeff_launches.items():
         launches[name].update(by_path)
 
     report = []
@@ -1542,9 +1839,9 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes Montgomery products, sums or
-            # powers mod p on 8- or 12-word limbs, point ladders and sums on
-            # any curve family, SHA-256 over a batch of tensors, or a
-            # Fiat-Shamir chain
+            # powers mod p on 8- or 12-word limbs, point ladders, sums and
+            # bucket MSMs on any curve family, SHA-256 over a batch of
+            # tensors, or a Fiat-Shamir chain
             "library_ms": None}
         if g_ms is not None:
             row["graph_ms"] = g_ms
@@ -1556,6 +1853,7 @@ def main() -> int:
     print(json.dumps({"stages": stages}))
     print(json.dumps(facade_line))
     print(json.dumps(dist_line))
+    print(json.dumps(coeff_line))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

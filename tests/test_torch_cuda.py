@@ -478,3 +478,53 @@ def test_fs256_prove_and_verify_on_card(dev, c):
     bad.d_prime[2] = c.fn.add(bad.d_prime[2], c.fn.one(dev))
     with pytest.raises(bt.VerificationError):
         bt.batch_verify(c, pk, n, bad, V)
+
+
+@pytest.mark.parametrize("R,N,prow,window,slices", [
+    (3, 37, 3, 6, 1), (4, 50, 2, 6, 4), (2, 9, 1, 4, 3), (1, 200, 1, 8, 14)])
+def test_bucket_kernels_match_plain(dev, c, R, N, prow, window, slices):
+    """Accumulate, merge and reduce against their plain versions word for
+    word (the same add order), with zero scalars, P + P and the identity in
+    a bucket, rows sharing their points and a short last slice; the whole
+    bucket MSM against the joint ladder as affine points."""
+    rnd = random.Random(R * 1000 + N)
+    fn = c.fn
+    P = points(c, prow * N, N, dev).reshape(prow, N, c.COORDS, c.fp.L)
+    P[0, 1] = c.identity(dev)
+    P[0, 3] = P[0, 2]
+    vals = [rnd.randrange(fn.p) for _ in range(R * N)]
+    vals[0] = 0
+    vals[2] = vals[3]
+    S = fn.encode_plain(vals, dev).reshape(R, N, fn.L)
+    nbits = fn.order_bits
+    nwin = -(-nbits // window)
+    before = [f.launches for f in (cc.bucket_accumulate, cc.bucket_merge, cc.bucket_reduce)]
+    bk = cc.bucket_accumulate(c, S, P, nwin, window, slices)
+    assert torch.equal(bk, cc.bucket_accumulate_plain(c, S, P, nwin, window, slices))
+    merged = cc.bucket_merge(c, bk) if slices > 1 else bk[:, 0]
+    if slices > 1:
+        assert torch.equal(merged, cc.bucket_merge_plain(c, bk))
+    out = cc.bucket_reduce(c, merged, window)
+    assert torch.equal(out, cc.bucket_reduce_plain(c, merged, window))
+    assert [f.launches for f in (cc.bucket_accumulate, cc.bucket_merge, cc.bucket_reduce)] == [
+        before[0] + 1, before[1] + (slices > 1), before[2] + 1]
+    want = msm(c, S, P.repeat(R // prow, 1, 1, 1), nbits)
+    assert c.decode_points(out) == c.decode_points(want)
+    assert c.decode_points(cc.bucket_msm(c, S, P, nbits, window)) == c.decode_points(want)
+
+
+def test_coeff_prove_on_card_equals_fixture(dev, c, monkeypatch):
+    """BPP_PROVER=coeff on both row-MSM backends: `prove` of the first
+    fixture statement gives the fixture's bytes (the bucket kernels launch
+    on the second)."""
+    n, m, rows = read_fixture(c)
+    pk = bt.PublicKey.new(c, n * m, dev)
+    (prover,) = fixture_provers(c, pk, n, m, 1)
+    monkeypatch.setenv("BPP_PROVER", "coeff")
+    for buckets in ("0", "1"):
+        monkeypatch.setenv("BPP_PIPPENGER", buckets)
+        before = cc.bucket_accumulate.launches
+        proof = bt.prove(c, pk, n, prover, bt.DeterministicTranscript(m),
+                         bt.DeterministicRng(m))
+        assert serialize.proof_to_bytes(c, proof) == rows[0][1]
+        assert (cc.bucket_accumulate.launches > before) == (buckets == "1")
