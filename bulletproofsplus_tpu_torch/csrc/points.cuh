@@ -131,6 +131,17 @@ __device__ __forceinline__ void pt_shfl_xor(P& Q, const P& src, int m) {
       Q.coord(c)[l] = __shfl_xor_sync(0xffffffffu, src.coord(c)[l], m);
 }
 
+// Q = P of the lane `d` above (all words); a lane with none above (lane + d
+// past 32) gets its own P back.
+template <class P>
+__device__ __forceinline__ void pt_shfl_down(P& Q, const P& src, int d) {
+#pragma unroll
+  for (int c = 0; c < P::NC; ++c)
+#pragma unroll
+    for (int l = 0; l < P::NL; ++l)
+      Q.coord(c)[l] = __shfl_down_sync(0xffffffffu, src.coord(c)[l], d);
+}
+
 // -- reductions --------------------------------------------------------------
 
 // Butterfly levels m = from, 2·from, ... below `to` (powers of two, to ≤ 32)

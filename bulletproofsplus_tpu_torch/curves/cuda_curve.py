@@ -43,10 +43,11 @@ so the kernels read coordinates and scalars at two widths.
   and plain version: `bucket_accumulate` (a thread per (row, slice,
   window) adds its run of points into its own 2^c buckets), `bucket_merge`
   (a thread per (row, window, digit) adds a bucket over the slices) and
-  `bucket_reduce` (a thread per (row, window) forms Σ d·bucket_d, the row's
-  last window runs Horner); see csrc/pippenger.cu. Rows may share their
-  points (row r reads point row r mod prow), so K proofs over one key read
-  one copy of its generators.
+  `bucket_reduce` (the quads of a warp form a window's Σ d·bucket_d over
+  1-8 segments, or a thread a window where the card is full, then a quad
+  a row runs Horner); see csrc/pippenger.cu.
+  Rows may share their points (row r reads point row r mod prow), so K
+  proofs over one key read one copy of its generators.
 
 Tables are entry-major (nent, lanes, C, L) for both versions, where a lane
 is a (window, point) pair, lane = window·N + point.
@@ -430,41 +431,96 @@ def bucket_merge(curve, buckets):
 bucket_merge.launches = 0
 
 
-def bucket_reduce_plain(curve, merged, c: int):
-    """Plain reduce: (R, nwin, 2^c, C, L) → (R, C, L). Per (row, window),
-    Σ_d d·bucket_d as a running sum from 2^c − 1 down to 1; then per row
-    Horner MSB first, c doublings and one add a window
-    (pippenger.py:108-151, the sums by the kernel's order)."""
+REDUCE_SEGMENTS = 8     # most segments a window of the reduce (one warp of quads)
+
+
+def reduce_segments(R: int, nwin: int, c: int, resident: int | None = None) -> int:
+    """Segments a window of the reduce's window sums (csrc/pippenger.cu): the
+    most, up to REDUCE_SEGMENTS and 2^c, whose quads (4 threads each) over
+    R·nwin windows the card's `resident` threads of the window kernel hold
+    at once; 0, a thread a window with no quads, where even one quad a
+    window is more: the card is full, and a quad issues an add's products
+    and shuffles on four lanes (on an H100 at 5,120 rows of 43 windows, c =
+    6, 6.06 / 10.09 / 20.88 ms for the three families against one quad a
+    window's 7.79 / 13.22 / 25.83; scripts/bench_torch_inv_reduce.py
+    --segments). `resident` None (the plain versions) takes the most: the
+    fewest sequential steps."""
+    if resident is not None and 4 * R * nwin > resident:
+        return 0
+    nseg = min(REDUCE_SEGMENTS, 1 << c)
+    while resident is not None and nseg > 1 and 4 * nseg * R * nwin > resident:
+        nseg //= 2
+    return nseg
+
+
+def bucket_reduce_plain(curve, merged, c: int, segments: int = 1):
+    """Plain reduce: (R, nwin, 2^c, C, L) → (R, C, L), the kernel's adds in
+    its order. Per (row, window), `segments` segments s hold digits s +
+    segments·j: running sums from the top give each S_s = Σ_j b and W_s =
+    Σ_j j·b (digit 0 skipped); then T_s = Σ_(s' ≥ s) S_s' by a suffix scan,
+    each W doubled log2(segments) times plus T_s where s ≥ 1, and a butterfly
+    over the segments: Σ_d d·b_d. Then per row Horner MSB first from the top
+    window's sum, c doublings and one add a window (pippenger.py:108-151).
+    `segments` 0 (the kernel's thread a window) adds as 1 does."""
     p = curve.plain
     R, nwin, B = merged.shape[:3]
-    run = tot = p.identity_like((R, nwin), merged.device)
-    for d in range(B - 1, 0, -1):
-        run = p.add(run, merged[:, :, d])
-        tot = p.add(tot, run)
-    acc = p.identity_like((R,), merged.device)
-    for w in range(nwin - 1, -1, -1):
+    if segments not in (0, 1, 2, 4, 8) or segments > B:
+        raise ValueError("segments must be 0, 1, 2, 4 or 8, at most 2^c")
+    ns = max(segments, 1)
+    dev = merged.device
+    seg = merged.reshape(R, nwin, B // ns, ns, *merged.shape[-2:])   # [.., j, s] = digit s + ns·j
+    run = wsum = p.identity_like((R, nwin, ns), dev)
+    for j in range(B // ns - 1, 0, -1):
+        run = p.add(run, seg[:, :, j])
+        wsum = p.add(wsum, run)
+    if ns > 1:
+        s = torch.arange(ns, device=dev)
+        run = p.select(s != 0, p.add(run, seg[:, :, 0]), run)
+        k = 1
+        while k < ns:
+            run = p.select(s + k < ns, p.add(run, run[:, :, (s + k) % ns]), run)
+            k *= 2
+        k = 1
+        while k < ns:
+            wsum = p.dbl(wsum)
+            k *= 2
+        wsum = p.select(s != 0, p.add(wsum, run), wsum)
+        k = 1
+        while k < ns:
+            wsum = p.add(wsum, wsum[:, :, s ^ k])
+            k *= 2
+    tot = wsum[:, :, 0]
+    acc = tot[:, nwin - 1]
+    for w in range(nwin - 2, -1, -1):
         for _ in range(c):
             acc = p.dbl(acc)
         acc = p.add(acc, tot[:, w])
     return acc
 
 
-def bucket_reduce(curve, merged, c: int):
-    """Reduce wrapper: bucket_reduce_plain's contract."""
+def bucket_reduce(curve, merged, c: int, segments: int | None = None):
+    """Reduce wrapper: bucket_reduce_plain's contract (the kernel refuses a
+    segment count it does not take); `segments` None picks reduce_segments'
+    count for the device (the card's resident threads of the window kernel;
+    the most on the CPU)."""
     R, nwin, B = merged.shape[:3]
     if B != 1 << c:
         raise ValueError("bucket_reduce: bucket count is not 2^c")
     if merged.device.type == "cpu":
-        return bucket_reduce_plain(curve, merged, c)
+        return bucket_reduce_plain(curve, merged, c, reduce_segments(R, nwin, c)
+                                   if segments is None else segments)
     kernels = _cuda_ready("pippenger_reduce", (merged, torch.int32))
     bk = kernels.aligned(merged)
+    if segments is None:
+        segments = reduce_segments(R, nwin, c, BUCKET_THREADS * kernels.resident_blocks(
+            "bpp_pippenger_reduce", curve.FAMILY, bk.device))
     C, L = curve.COORDS, curve.fp.L
-    # the R sums, then scratch: R·nwin window sums and R tickets
-    buf = torch.empty(R * C * L + R * nwin * C * L + R, dtype=torch.int32, device=bk.device)
+    # the R sums, then scratch: R·nwin window sums
+    buf = torch.empty(R * C * L + R * nwin * C * L, dtype=torch.int32, device=bk.device)
     out = buf[:R * C * L].view(R, C, L)
     if R:
         kernels.launch(f"bpp_pippenger_reduce_{curve.FAMILY}", bk.data_ptr(), buf.data_ptr(),
-                       buf[R * C * L:].data_ptr(), R, nwin, c, _consts_words(curve),
+                       buf[R * C * L:].data_ptr(), R, nwin, c, segments, _consts_words(curve),
                        device=bk.device)
         bucket_reduce.launches += 1
     return out

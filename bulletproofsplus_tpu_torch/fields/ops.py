@@ -4,7 +4,7 @@ Port of bulletproofsplus_tpu/fields/ops.py::FieldOps. L is the field spec's
 word count (8, or 12 for bls12-381's Fq). Elements are in Montgomery form
 (x·2^(32L) mod p) unless a method says "plain"; every method
 broadcasts over leading axes and returns fully reduced limbs. `mul` is K1
-(fields/mont_mul.py); add, sub, neg, sum and pow_const (so inv) are the
+(fields/mont_mul.py); add, sub, neg, sum, pow_const and inv are the
 field kernels of fields/field_kernels.py, one launch each. For each, a CPU
 tensor takes the plain version and a CUDA tensor the kernel; the XLA
 fusion the JAX package gets for free is those kernels here. The scans the
@@ -34,12 +34,12 @@ class FieldOps:
         self.L = spec.num_limbs
         self.is_plain = plain
         if plain:
-            self._mul, self._add, self._sub, self._neg, self._sum, self._pow = (
+            self._mul, self._add, self._sub, self._neg, self._sum, self._pow, self._inv = (
                 mont_mul_plain, fk.fe_add_plain, fk.fe_sub_plain, fk.fe_neg_plain,
-                fk.fe_sum_plain, fk.fe_pow_plain)
+                fk.fe_sum_plain, fk.fe_pow_plain, fk.fe_inv_plain)
         else:
-            self._mul, self._add, self._sub, self._neg, self._sum, self._pow = (
-                mont_mul, fk.fe_add, fk.fe_sub, fk.fe_neg, fk.fe_sum, fk.fe_pow)
+            self._mul, self._add, self._sub, self._neg, self._sum, self._pow, self._inv = (
+                mont_mul, fk.fe_add, fk.fe_sub, fk.fe_neg, fk.fe_sum, fk.fe_pow, fk.fe_inv)
         self._dev: dict = {}
 
     @functools.cached_property
@@ -112,8 +112,10 @@ class FieldOps:
         return self._pow(a, e, self.spec)
 
     def inv(self, a):
-        """Fermat inversion a^(p-2); a must be nonzero."""
-        return self.pow_const(a, self.p - 2)
+        """a⁻¹ elementwise, 0 ↦ 0 (what a^(p−2) gives, word for word): the
+        divstep inversion, one launch on the card (fields/field_kernels.py,
+        fe_inv)."""
+        return self._inv(a, self.spec)
 
     def scan_mul(self, a, dim: int, reverse: bool = False):
         """Inclusive prefix products along `dim` (Hillis–Steele doubling)."""
@@ -131,8 +133,8 @@ class FieldOps:
 
     def batch_invert(self, a, axis: int = 0):
         """(product of all inverses, elementwise inverses) along `axis`:
-        the Montgomery trick, one Fermat inversion per slice. Entries must
-        be nonzero."""
+        the Montgomery trick, one inversion per slice. Entries must be
+        nonzero."""
         dim = axis
         n = a.shape[dim]
         pre = self.scan_mul(a, dim)

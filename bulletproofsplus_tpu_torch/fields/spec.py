@@ -29,6 +29,8 @@ import torch
 
 NUM_LIMBS = 8          # words of a scalar and of a 256-bit base-field element
 LIMB_BITS = 32
+DIVSTEP_BLOCK = 30     # divsteps a block of the inversion (fe_inv), bits of its limbs
+INV_LIMBS_MAX = 13     # signed 30-bit limbs of a 12-word value and its sign
 
 ED25519_P = 2**255 - 19
 ED25519_L = 2**252 + 27742317777372353535851937790883648493
@@ -85,6 +87,38 @@ class FieldSpec:
         words = self.p_words + [self.n0inv] + int_to_words(self.r_mod_p, self.num_limbs)
         return (ctypes.c_uint32 * len(words))(*words)
 
+    @property
+    def s30_limbs(self) -> int:
+        """Signed 30-bit limbs of the inversion (csrc/field_ops.cu, fe_inv):
+        9 for 8 words, 13 for 12, room for a 32·L-bit value and its sign."""
+        return 32 * self.num_limbs // DIVSTEP_BLOCK + 1
+
+    @property
+    def divsteps(self) -> int:
+        """Divsteps that bring g to 0 for every input: Bernstein and Yang's
+        bound (eprint 2019/266, Theorem 11.2) for f = p, 0 ≤ g < p, d = the
+        bit length of p (f² + 4g² < 5·2^(2d)): ⌊(49d + 57)/17⌋ for d ≥ 46,
+        ⌊(49d + 80)/17⌋ below; 732 to 741 for the 253- to 256-bit moduli,
+        1,101 for bls12-381's Fq."""
+        d = self.modulus.bit_length()
+        return (49 * d + (57 if d >= 46 else 80)) // 17
+
+    @property
+    def divstep_blocks(self) -> int:
+        """Blocks of DIVSTEP_BLOCK divsteps the inversion runs (25 at 8 words,
+        37 for bls12-381's Fq)."""
+        return -(-self.divsteps // DIVSTEP_BLOCK)
+
+    @functools.cached_property
+    def inv_consts(self):
+        """The inversion kernel's argument (csrc/field_ops.cu, InvConsts),
+        built once: the divstep count, p⁻¹ mod 2^30, then p and R² mod p in
+        signed 30-bit limbs, INV_LIMBS_MAX each."""
+        words = ([self.divsteps, pow(self.modulus, -1, 1 << DIVSTEP_BLOCK)]
+                 + int_to_s30(self.modulus, INV_LIMBS_MAX)
+                 + int_to_s30(self.r2_mod_p, INV_LIMBS_MAX))
+        return (ctypes.c_uint32 * len(words))(*words)
+
 
 ED25519_FP = FieldSpec("ed25519_fp", ED25519_P)
 ED25519_FL = FieldSpec("ed25519_fl", ED25519_L)
@@ -99,6 +133,14 @@ def int_to_words(x: int, limbs: int = NUM_LIMBS) -> List[int]:
     if not 0 <= x < 1 << (LIMB_BITS * limbs):
         raise ValueError(f"value does not fit in {limbs} limbs of 32 bits")
     return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(limbs)]
+
+
+def int_to_s30(x: int, limbs: int) -> List[int]:
+    """Nonnegative int → `limbs` 30-bit limbs, little-endian (the inversion's
+    signed representation of a nonnegative value)."""
+    if not 0 <= x < 1 << (DIVSTEP_BLOCK * limbs):
+        raise ValueError(f"value does not fit in {limbs} limbs of 30 bits")
+    return [(x >> (DIVSTEP_BLOCK * i)) & ((1 << DIVSTEP_BLOCK) - 1) for i in range(limbs)]
 
 
 def ints_to_tensor(xs: Sequence[int], device=None, limbs: int = NUM_LIMBS) -> torch.Tensor:

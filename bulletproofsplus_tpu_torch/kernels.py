@@ -6,13 +6,12 @@ Each point-kernel source builds once per point family (csrc/family.cuh:
 -DBPP_FAMILY=0 gives entry point bpp_<kernel>_edwards, 1 gives
 bpp_<kernel>_weierstrass at 8 words a coordinate, 2 gives
 bpp_<kernel>_weierstrass12 at 12), and all eighteen compilations run at
-once; the field kernels (field_ops.cu: K1's product, add, sub, neg, sum and
-power) hold both of their widths in one unit, and the fs256 transcript's
-chain (fs256_chain.cu) and SHA-256 (sha256.cu), which share sha256.cuh's
-compression, are two more. The build
-runs at first use, into bulletproofsplus_tpu_torch/build/ (git-ignored),
-keyed by a hash of the sources, so a checkout builds everything it runs from
-its own files.
+once; the field kernels (field_ops.cu: K1's product, add, sub, neg, sum,
+power and inverse) hold both of their widths in one unit, and the fs256
+transcript's chain (fs256_chain.cu) and SHA-256 (sha256.cu), which share
+sha256.cuh's compression, are two more. The build runs at first use, into
+bulletproofsplus_tpu_torch/build/ (git-ignored), keyed by a hash of the
+sources, so a checkout builds everything it runs from its own files.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `launch` raises on a nonzero code. Launch counters live
@@ -53,7 +52,7 @@ _POINT_SIGNATURES = {
     "bpp_ladder": [_P, _P, _P, _LL, _I, _U32P],
     "bpp_pippenger_accumulate": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _U32P],
     "bpp_pippenger_merge": [_P, _P, _LL, _I, _I, _I, _U32P],
-    "bpp_pippenger_reduce": [_P, _P, _P, _LL, _I, _I, _U32P],
+    "bpp_pippenger_reduce": [_P, _P, _P, _LL, _I, _I, _I, _U32P],
 }
 _OPERAND = [_P, _LL, _LL, _LL]                  # pointer, inner, s_inner, s_outer
 _FIELD_SIGNATURES = {
@@ -63,6 +62,7 @@ _FIELD_SIGNATURES = {
     "bpp_fe_neg": [*_OPERAND, _P, _LL, _I, _U32P],
     "bpp_fe_sum": [_P, _P, _LL, _LL, _LL, _I, _U32P],
     "bpp_fe_pow": [_P, _P, _LL, _I, _U32P, _I, _U32P],
+    "bpp_fe_inv": [_P, _P, _LL, _I, _U32P],
 }
 # entry point: argument types before the trailing stream pointer
 SIGNATURES = {**_FIELD_SIGNATURES, "bpp_sha256_words": [_P, _P, _LL, _I],
@@ -72,7 +72,8 @@ SIGNATURES = {**_FIELD_SIGNATURES, "bpp_sha256_words": [_P, _P, _LL, _I],
 
 # point kernels whose entry point bpp_<kernel>_resident_<family>() gives the
 # blocks the card holds at once (kernels that size their grid to it)
-RESIDENT = ("bpp_sum_points", "bpp_fixed_lookup", "bpp_pippenger_accumulate")
+RESIDENT = ("bpp_sum_points", "bpp_fixed_lookup", "bpp_pippenger_accumulate",
+            "bpp_pippenger_reduce")
 
 _LIB = None
 _ENTRIES: dict = {}

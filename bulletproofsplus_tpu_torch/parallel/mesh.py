@@ -104,29 +104,31 @@ def default_mesh(n_devices: int | None = None, dp: int | None = None,
     return Mesh([devices[r * tp:(r + 1) * tp] for r in range(dp)])
 
 
-def init_distributed(init_method: str | None = None, world_size: int | None = None,
-                     rank: int | None = None) -> None:
-    """Join the multi-process runtime (idempotent). Arguments default to
-    the standard variables: MASTER_ADDR and MASTER_PORT (the env://
-    rendezvous), WORLD_SIZE and RANK. init_method may also be
-    "tcp://host:port" or "file:///path" (a file on a filesystem every
-    process sees, which needs no network). The backend is Gloo, which
-    all-reduces the CPU tensors that carry the verdicts on any machine."""
+def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
+                     process_id: int | None = None) -> None:
+    """Join the multi-process runtime (idempotent); the JAX package's
+    parameters (parallel/mesh.py:34): `coordinator` is the rendezvous
+    (torch.distributed's init_method: "tcp://host:port", or "file:///path"
+    on a filesystem every process sees, which needs no network),
+    `num_processes` the world size and `process_id` this rank. They default
+    to the standard variables: MASTER_ADDR and MASTER_PORT (the env://
+    rendezvous), WORLD_SIZE and RANK. The backend is Gloo, which all-reduces
+    the CPU tensors that carry the verdicts on any machine."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return
-    if world_size is None and "WORLD_SIZE" in os.environ:
-        world_size = int(os.environ["WORLD_SIZE"])
-    if rank is None and "RANK" in os.environ:
-        rank = int(os.environ["RANK"])
-    if init_method is None and "MASTER_ADDR" in os.environ:
-        init_method = "env://"
-    if init_method is None or world_size is None or rank is None:
-        raise ValueError("init_distributed needs an init_method (or MASTER_ADDR and "
-                         "MASTER_PORT), a world size and a rank")
-    dist.init_process_group("gloo", init_method=init_method, world_size=world_size,
-                            rank=rank)
+    if num_processes is None and "WORLD_SIZE" in os.environ:
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if process_id is None and "RANK" in os.environ:
+        process_id = int(os.environ["RANK"])
+    if coordinator is None and "MASTER_ADDR" in os.environ:
+        coordinator = "env://"
+    if coordinator is None or num_processes is None or process_id is None:
+        raise ValueError("init_distributed needs a coordinator (or MASTER_ADDR and "
+                         "MASTER_PORT), a process count and a process id")
+    dist.init_process_group("gloo", init_method=coordinator, world_size=num_processes,
+                            rank=process_id)
 
 
 def _world() -> tuple:
@@ -165,13 +167,17 @@ def global_mesh(dp: int | None = None, devices=None) -> Mesh:
                 row0=rank * here, world=world)
 
 
-def distributed_barrier(timeout_s: float = 1800.0) -> None:
-    """Line the processes up (no-op in one process); raises, naming the
-    rank, if one does not arrive within timeout_s."""
+def distributed_barrier(tag: str, timeout_ms: int = 1_800_000) -> None:
+    """Line the processes up (no-op in one process), the JAX package's
+    parameters (parallel/mesh.py:89); raises, naming the rank and `tag`, if
+    one does not arrive within timeout_ms milliseconds."""
     import torch.distributed as dist
 
     if _world()[0] > 1:
-        dist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            dist.monitored_barrier(timeout=datetime.timedelta(milliseconds=timeout_ms))
+        except RuntimeError as exc:
+            raise RuntimeError(f"distributed_barrier({tag!r}): {exc}") from exc
 
 
 def warmup_collectives(mesh: Mesh) -> None:

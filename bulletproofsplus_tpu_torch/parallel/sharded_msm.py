@@ -125,21 +125,22 @@ def sharded_msm_rows(curve, scalars, points, mesh, nbits: int | None = None):
             Bp, *outs[0].shape[1:])[:B]
 
 
-def sharded_fixed_msm(curve, scalars, tables, mesh, axis: str = "tp",
+def sharded_fixed_msm(curve, scalars, table, mesh, axis: str = "tp",
                       nbits: int | None = None):
     """Fixed-base MSM (msm/fixed.py) with the generator axis split over
-    mesh[axis]: scalars (N, S) plain, `tables` one per device of the axis,
-    table j built on device j from generators [j·N/P, (j+1)·N/P)
+    mesh[axis]: scalars (N, S) plain; `table` the JAX package's one table
+    sharded over the axis, here its slices, one per device of the axis,
+    slice j built on device j from generators [j·N/P, (j+1)·N/P)
     (PublicKey.fixed_tables(mn, devices) or msm.fixed.precompute_slice_tables).
     Each device looks up its own slice (K4, then K3); the P partials are
     summed on the first device. N must split evenly over the axis."""
     devs = mesh.axis_devices(axis)
     P = len(devs)
-    if scalars.shape[0] % P or len(tables) != P:
+    if scalars.shape[0] % P or len(table) != P:
         raise ValueError("table point axis must divide the mesh axis")
     per = scalars.shape[0] // P
     with record_function("bpp::sharded_msm"):
         parts = [shard_partial(curve, d, gen_scalars=scalars[j * per:(j + 1) * per],
-                               table=tables[j], nbits=nbits)
+                               table=table[j], nbits=nbits)
                  for j, d in enumerate(devs)]
     return gather_sum(curve, parts, devs[0])

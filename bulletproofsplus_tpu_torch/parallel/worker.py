@@ -101,7 +101,7 @@ def main(argv=None) -> int:
         provers.append(p)
     batch = batch_prove(curve, pk, n, provers, [DeterministicTranscript(m)] * K,
                         [DeterministicRng(m)] * K)
-    V = stack_commitments([p.commitment_vec for p in provers])
+    V = stack_commitments(curve, [p.commitment_vec for p in provers])
     trs = [DeterministicTranscript(m)] * K
 
     t = time.perf_counter()

@@ -201,30 +201,46 @@ def _batch_verify_dp(curve, pk, n: int, m: int, batch: ProofBatch, V_all, transc
     return replicated_all_identity(curve, rows, mesh)
 
 
+def one_aggregation(n: int, proofs) -> None:
+    """Raise the JAX package's TypeError on a list of proofs whose m differ
+    (n·m = 2^rounds), before any card work; stack_commitments raises it on
+    commitment lists of different lengths. JAX's batch_verify fails on such
+    a batch in a field add whose shapes do not broadcast (batch.py:294),
+    its batch_verify_identify in stack_commitments (batch.py:415,
+    range.py:650-659); no reference verifies one."""
+    if isinstance(proofs, ProofBatch):
+        return
+    ms = sorted({(1 << len(p.proof.L_vec)) // n for p in proofs})
+    if len(ms) > 1:
+        raise TypeError(f"a batch mixes aggregation sizes m = {ms}: batch verification "
+                        "takes proofs of one m")
+
+
 def batch_verify(curve, pk, n: int, proofs, commitment_lists,
-                 transcripts=None, rng=None, mesh=None) -> None:
+                 transcripts=None, mesh=None, rng=None) -> None:
     """Verify K proofs over one pk in a single MSM; raises VerificationError.
 
     proofs: a ProofBatch or a sequence of RangeProof; commitment_lists: a
     (K, m, C, L) tensor or K equal-length lists of (C, L) points, all on
-    pk's device. transcripts: K fresh transcripts, by default
+    pk's device; proofs of different m raise TypeError, as in the JAX
+    package. transcripts: K fresh transcripts, by default
     Fs256Transcript(m) each, or of the kinds that proved the proofs
     (DeterministicTranscript, ShaTranscript, MerlinBppTranscript, or a mix).
-    rng: callable returning the 128-bit
-    RLC weights; the default draws them from `secrets`, and must stay
-    unpredictable to the prover. mesh: a parallel.Mesh to shard the MSM
-    over (batch.py:240-272): with dp > 1 rows dividing K, dp group MSMs,
-    one a row; otherwise the one merged MSM over the first row's tp
-    devices. Over a mesh that spans processes, every process passes the
-    same batch and only the verdicts cross."""
+    mesh: a parallel.Mesh to shard the MSM over (batch.py:240-272): with
+    dp > 1 rows dividing K, dp group MSMs, one a row; otherwise the one
+    merged MSM over the first row's tp devices. Over a mesh that spans
+    processes, every process passes the same batch and only the verdicts
+    cross. rng: callable returning the 128-bit RLC weights; the default
+    draws them from `secrets`, and must stay unpredictable to the prover."""
     if len(proofs) != len(commitment_lists):
         raise VerificationError("proof/commitment count mismatch")
     K = len(proofs)
     if K == 0:
         return
+    one_aggregation(n, proofs)
     draw = rng or (lambda: secrets.randbits(128))
+    V_all = stack_commitments(curve, commitment_lists)
     batch = proofs if isinstance(proofs, ProofBatch) else ProofBatch.from_proofs(proofs)
-    V_all = stack_commitments(commitment_lists)
     m = V_all.shape[1]
     if transcripts is None:
         transcripts = [Fs256Transcript(m) for _ in range(K)]
@@ -244,7 +260,7 @@ def batch_verify(curve, pk, n: int, proofs, commitment_lists,
 
 
 def batch_verify_identify(curve, pk, n: int, proofs, commitment_lists,
-                          transcript_factory=None, rng=None, mesh=None) -> List[int]:
+                          transcript_factory=None, mesh=None, rng=None) -> List[int]:
     """Verify K proofs in one batch and, if it fails, bisect: each half is
     verified as a batch of its own until the failing proofs are isolated.
     Returns the sorted indices of the proofs that fail ([] when the batch
@@ -253,9 +269,11 @@ def batch_verify_identify(curve, pk, n: int, proofs, commitment_lists,
     transcript_factory: index → a FRESH transcript for that proof, called
     for every dispatch (transcripts are stateful and each dispatch replays
     them); None gives fresh default transcripts (Fs256Transcript) each
-    time. rng, mesh: as batch_verify's."""
+    time. mesh, rng: as batch_verify's; proofs of different m raise
+    TypeError, as in the JAX package."""
+    one_aggregation(n, proofs)
+    V_all = stack_commitments(curve, commitment_lists)
     batch = proofs if isinstance(proofs, ProofBatch) else ProofBatch.from_proofs(proofs)
-    V_all = stack_commitments(commitment_lists)
     if len(batch) != V_all.shape[0]:
         raise VerificationError("proof/commitment count mismatch")
 
@@ -264,7 +282,7 @@ def batch_verify_identify(curve, pk, n: int, proofs, commitment_lists,
                else [transcript_factory(i) for i in range(lo, hi)])
         try:
             batch_verify(curve, pk, n, batch.take(slice(lo, hi)), V_all[lo:hi],
-                         transcripts=trs, rng=rng, mesh=mesh)
+                         transcripts=trs, mesh=mesh, rng=rng)
             return []
         except VerificationError:
             if hi - lo == 1:

@@ -129,13 +129,17 @@ def validate(pk, n: int, m: int) -> None:
         raise InvalidGeneratorsLength()
 
 
-def stack_commitments(commitment_lists) -> torch.Tensor:
-    """(K, m, C, L) commitments from a tensor (passed through) or K lists."""
+def stack_commitments(curve, commitment_lists) -> torch.Tensor:
+    """(K, m, C, L) commitments from a tensor (passed through) or K lists of
+    (C, L) points (range.py:650-659); lists of different lengths raise
+    TypeError, as the JAX package's reshape does. `curve` is taken for the
+    JAX package's signature; the points carry their own shape."""
     if isinstance(commitment_lists, torch.Tensor):
         return commitment_lists
-    if any(len(V) != len(commitment_lists[0]) for V in commitment_lists):
-        raise NotImplementedError(
-            "batches mixing aggregation sizes are not ported yet")
+    lengths = sorted({len(V) for V in commitment_lists})
+    if len(lengths) > 1:
+        raise TypeError(f"commitment lists of lengths m = {lengths} do not stack into one "
+                        "(K, m) batch")
     return torch.stack([torch.stack(list(V)) for V in commitment_lists])
 
 

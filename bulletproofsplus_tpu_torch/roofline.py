@@ -21,9 +21,24 @@ The field kernels (csrc/field_ops.cu) move L-word elements: K1's product
 and add/sub/neg read each distinct element of an operand once (a broadcast
 operand's few) and write n; fe_sum reads its (B, R, C) input and writes
 (B, C); these are bound by bytes, and only the product counts operations.
-fe_pow is bound by operations: per element 14 table products, 4 squarings
-a window below the top one, and one product a nonzero digit there (the
-kernel skips a zero digit's product by 1).
+fe_pow's operations are per element 14 table products, 4 squarings a
+window below the top one, and one product a nonzero digit there (the
+kernel skips a zero digit's product by 1); those products form one
+dependent chain, so its operations time is the larger of the card's rate
+over all of them and one element's chain of products at `fe_mul_depth`
+dependent operations each, INT_DEP_CYCLES apart (`fe_pow_ms`). A product's
+`fe_mul_depth` is the part of its dependent path that no schedule of
+32-bit words avoids: the reduction's nl quotient words form a chain, each
+m_(i+1) = t_0·(−p⁻¹) mod 2^32 waiting on a product of m_i (which feeds
+t_0) and then on its own product, 2·nl operations; the carry chains
+beside it (4·nl² operations if each ran after the last) a kernel can
+overlap, so they are not counted. fe_inv's work is the modulus's divsteps
+(FieldSpec.divsteps, Bernstein and Yang's bound for its bit length, which
+the launch's constants carry), each a dependent path of DIVSTEP_DEPTH
+operations (test g's low bit, add or subtract f, halve), which no
+batching of the steps shortens; its operations time is the larger of
+that chain for one element and the card's rate over every element's
+divsteps (`fe_inv_ms`). Both read and write n elements.
 
 The fs256 transcript's SHA-256 (csrc/sha256.cu, one thread a message)
 reads each message once and writes a 32-byte digest, and does no
@@ -42,9 +57,7 @@ states. Its floor is one transcript's dependent path: every absorb's
 blocks and, per challenge, the state step and one half (the two halves
 are independent) at the chain term above, plus one Montgomery product (the
 digest's reduction takes one product a half, both halves side by side,
-and an add), whose dependent path is `fe_mul_depth` operations: each of
-the product's nl rows runs four carry chains of nl operations, all
-threading one carry flag, 4·nl² at INT_DEP_CYCLES each.
+and an add) at `fe_mul_depth` dependent operations, INT_DEP_CYCLES apart.
 
 The bucket MSM (csrc/pippenger.cu) counts point adds and doublings at
 the family's products each: accumulate one add a nonzero digit, at most
@@ -52,8 +65,14 @@ R·N·nwin (`launch_work` counts them all; where the scalars are at hand,
 `bucket_adds` counts the run's own nonzero digits and `bound` takes that
 count), reading the points and scalars once and writing every bucket;
 merge (slices − 1) adds a bucket; reduce 2·(2^c − 1) adds a (row, window)
-and Horner's c·nwin doublings and nwin adds a row, reading the buckets of
-digits 1 and up once.
+and Horner's c·(nwin − 1) doublings and nwin − 1 adds a row, reading the
+buckets of digits 1 and up once. The reduce's operations time is the
+larger of the card's rate over those adds and one row's dependent chain
+(`reduce_ms`): Horner's c·(nwin − 1) doublings and nwin − 1 adds, after a
+window sum of log depth (c adds: a tree over its 2^c − 1 weighted
+buckets), each point op at its family's dependent product levels (LEVELS:
+the products of an add or a doubling that must follow one another) ×
+`fe_mul_depth`, INT_DEP_CYCLES apart.
 
 The work of a launch comes from the size arguments it passed to
 `kernels.launch`, so chip_smoke.py and scripts/profile_torch_batch_verify.py
@@ -75,6 +94,11 @@ CHAIN_STEP_WORDS = 9       # hashers_device.schedule_words: words of a chain ste
 # bytes of a point)
 FAMILIES = {"edwards": (9, 8, 8, 128), "weierstrass": (14, 9, 8, 96),
             "weierstrass12": (14, 9, 12, 144)}
+# family → dependent product levels of (an add, a doubling): hwcd's add
+# (its four products, 2d·T1·T2, then the four outputs) and doubling (four
+# squares, then the outputs); RCB's add and doubling one level deeper
+LEVELS = {"edwards": (3, 2), "weierstrass": (4, 3), "weierstrass12": (4, 3)}
+DIVSTEP_DEPTH = 3          # dependent operations of a divstep: test, add, halve
 
 
 def fe_mul_mads(nl: int) -> int:
@@ -106,7 +130,49 @@ def pow_muls(exp_words, nwin: int) -> int:
 
 # field entry point → position of its word count in the launch's arguments
 FIELD_WORDS = {"bpp_mont_mul": 10, "bpp_fe_add": 10, "bpp_fe_sub": 10, "bpp_fe_neg": 6,
-               "bpp_fe_sum": 5, "bpp_fe_pow": 3}
+               "bpp_fe_sum": 5, "bpp_fe_pow": 3, "bpp_fe_inv": 3}
+
+
+def dep_ms(ops: int) -> float:
+    """ms of a chain of `ops` dependent integer operations, INT_DEP_CYCLES
+    apart at the boost clock."""
+    return ops * INT_DEP_CYCLES / CLOCK_HZ * 1e3
+
+
+def fe_pow_ms(n: int, nl: int, exp_words, nwin: int) -> tuple:
+    """(bytes time, operations time) in ms of one bpp_fe_pow launch over n
+    elements: the larger of one element's chain of products and the card's
+    rate over all of them."""
+    muls = pow_muls(exp_words, nwin)
+    rate = n * muls * fe_mul_mads(nl) / INT_MADS_PER_S * 1e3
+    return 2 * n * 4 * nl / HBM_BYTES_PER_S * 1e3, max(rate, dep_ms(muls * fe_mul_depth(nl)))
+
+
+def fe_inv_ms(n: int, nl: int, consts) -> tuple:
+    """(bytes time, operations time) in ms of one bpp_fe_inv launch over n
+    elements: the larger of one element's chain of divsteps and the card's
+    rate over every element's."""
+    steps = int(consts[0])      # FieldSpec.inv_consts: FieldSpec.divsteps first
+    rate = n * steps * DIVSTEP_DEPTH / INT_MADS_PER_S * 1e3
+    return 2 * n * 4 * nl / HBM_BYTES_PER_S * 1e3, max(rate, dep_ms(steps * DIVSTEP_DEPTH))
+
+
+def reduce_chain_ops(family: str, nwin: int, c: int) -> int:
+    """Dependent operations of one row of the bucket reduce: the window
+    sum's c add levels, then Horner's c·(nwin − 1) doublings and nwin − 1
+    adds, each at the family's dependent product levels of fe_mul_depth."""
+    add_lv, dbl_lv = LEVELS[family]
+    levels = c * add_lv + (nwin - 1) * (c * dbl_lv + add_lv)
+    return levels * fe_mul_depth(FAMILIES[family][2])
+
+
+def reduce_ms(family: str, R: int, nwin: int, c: int) -> tuple:
+    """(bytes time, operations time) in ms of one bpp_pippenger_reduce
+    launch: the larger of the card's rate over its adds and doublings and
+    one row's chain."""
+    nbytes, muls = launch_work(f"bpp_pippenger_reduce_{family}", (0, 0, 0, R, nwin, c))
+    rate = muls * fe_mul_mads(FAMILIES[family][2]) / INT_MADS_PER_S * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, max(rate, dep_ms(reduce_chain_ops(family, nwin, c)))
 
 
 def sha256_blocks(msg_bytes: int) -> int:
@@ -126,8 +192,9 @@ def sha256_ms(B: int, msg_bytes: int) -> tuple:
 
 
 def fe_mul_depth(nl: int) -> int:
-    """Dependent operations of one CIOS Montgomery product of nl words."""
-    return 4 * nl * nl
+    """Dependent operations of one Montgomery product of nl 32-bit words
+    that no kernel avoids: its chain of nl quotient words, two a word."""
+    return 2 * nl
 
 
 def chain_steps(words, nsteps: int) -> list:
@@ -201,6 +268,10 @@ def launch_work(name: str, args, adds: int | None = None) -> tuple:
     if name == "bpp_fe_pow":
         n, nl, exp_words, nwin = args[2:6]
         return 2 * n * 4 * nl, n * pow_muls(exp_words, nwin)
+    if name == "bpp_fe_inv":
+        # no Montgomery product: fe_inv_ms counts its divsteps
+        n, nl = args[2:4]
+        return 2 * n * 4 * nl, 0
     name, family = name.rsplit("_", 1)
     if family not in FAMILIES:
         raise ValueError(f"no work model for {name}_{family}")
@@ -216,7 +287,7 @@ def launch_work(name: str, args, adds: int | None = None) -> tuple:
         R, nwin, c = args[3:6]
         B = 1 << c
         return (R * nwin * (B - 1) * pt + R * pt,
-                R * nwin * 2 * (B - 1) * add + R * nwin * (c * dbl + add))
+                R * nwin * 2 * (B - 1) * add + R * (nwin - 1) * (c * dbl + add))
     if name == "bpp_joint_ladder":
         G, J, nwin = args[3:6]
         return (G * J * (pt + SCALAR_BYTES) + G * pt,
@@ -254,6 +325,12 @@ def bound(calls, adds: int | None = None) -> tuple:
         elif name == "bpp_fs256_chain":
             K, rows, row_words, sched, nsteps = args[5:10]
             tb, to = fs256_chain_ms(chain_steps(sched, nsteps), K, rows, row_words)
+        elif name == "bpp_fe_pow":
+            tb, to = fe_pow_ms(*args[2:6])
+        elif name == "bpp_fe_inv":
+            tb, to = fe_inv_ms(*args[2:5])
+        elif name.startswith("bpp_pippenger_reduce_"):
+            tb, to = reduce_ms(name.rsplit("_", 1)[1], *args[3:6])
         else:
             nbytes, muls = launch_work(name, args, adds)
             tb = nbytes / HBM_BYTES_PER_S * 1e3

@@ -52,7 +52,7 @@ def main(argv=None) -> None:
         for i in range(m):
             p.commit(pk, (7 * k + 3 * i + 2) % (1 << n), 2 * i + k + 3)
         provers.append(p)
-    commits = stack_commitments([p.commitment_vec for p in provers])
+    commits = stack_commitments(curve, [p.commitment_vec for p in provers])
 
     t0 = time.time()
     pbatch = batch_prove(curve, pk, n, provers)

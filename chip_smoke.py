@@ -15,8 +15,10 @@ final line:
      around it at the path's shapes, on operands drawn from the same kind of
      values: fe_add with a (K, 1) operand broadcast over (K, mn), fe_sub
      and fe_neg on (K, mn), fe_sum over K of (K, mn) (the RLC merge) and
-     over the row of (K, mn/2) (round 0's c_L), and fe_pow by p − 2 on K
-     values (a batch inversion); and K2 (joint ladder,
+     over the row of (K, mn/2) (round 0's c_L), fe_pow by p − 2 on K
+     values (no path calls it since fe_inv) and fe_inv (the divstep
+     inversion every path runs) on the same K values with one 0, also
+     against fe_pow_plain(·, p − 2) word for word; and K2 (joint ladder,
      J = 8) and K3 (grouped point sum) at the shapes of the verify batch
      below (edwards25519: 1,249 groups; secp256k1: 2,913; bls12-381: 9,185,
      K2 compared on its first 4,096), and time both;
@@ -68,7 +70,9 @@ final line:
      its plain version, bit for bit, at the K = 256 verifier's schedule and
      the prover's round step, both also from a CUDA graph; batch-prove
      the bench statements with fresh Fs256Transcripts (counters at 0 before
-     the run; K1, K2, K3, K5 and the chain must have run), the card's
+     the run; K1, K2, K3, K5 and the chain must have run), hold fe_inv on
+     the Z column that batch's replay inverts and the identity's Z (0 on
+     a Weierstrass curve), the card's
      replay of that batch must equal the host twin's on a sample of proofs,
      and the prover's transcripts must end in the host twin's final state;
      batch-verify it by default (the card's replay; K1-K4 and the chain
@@ -132,10 +136,15 @@ final line:
      held against their plain versions on one K = 1 L/R row set of the
      edwards25519 headline (20 rows x 1,026 pairs on the key's
      generators) on each curve, and on one row of 2mn + 2 pairs with every
-     seventh scalar 0 and a padded last slice; last, timed only, the
+     seventh scalar 0 and a padded last slice, the reduce word for word
+     at the segment count its wrapper picks (8 at the row set), at 1 and
+     at a thread a window (K = 256's); the K = 256 batch's reduce launch
+     and its bound are
+     recorded; last, timed only, the
      bucket MSM at the K = 256 verifier's variable-MSM shape (one row of
      9,986 lanes) beside K2 + K3 there.
-Last, it prints each curve's batch timings on their own lines, the facade's
+Every counted run of a path fails if fe_pow launched in it (FieldOps.inv
+runs fe_inv). Last, it prints each curve's batch timings on their own lines, the facade's
 line, the distribution line, the coefficient prover's line, the launches
 of each profiled stage, the kernels' JSON line (one row for each curve,
 kernel and shape held above: time through the wrapper, and for K1's family,
@@ -177,10 +186,16 @@ DEVICE = "cuda:0"
 # JAX package runs those as XLA-fused jnp (FieldOps methods, fields/ops.py),
 # so K1's Pallas call is what each of them stands beside
 FIELD_KERNELS = {"K1": "mont_mul", "K1 add": "fe_add", "K1 sub": "fe_sub",
-                 "K1 neg": "fe_neg", "K1 sum": "fe_sum", "K1 pow": "fe_pow"}
+                 "K1 neg": "fe_neg", "K1 sum": "fe_sum", "K1 pow": "fe_pow",
+                 "K1 inv": "fe_inv"}
+# the field kernels every proving and verifying path launches: all but
+# fe_pow, which no path calls since FieldOps.inv runs fe_inv (`counted`
+# fails if one does)
+PATH_FIELD_KERNELS = tuple(k for k in FIELD_KERNELS if k != "K1 pow")
 JAX_COUNTERPARTS = {"K1": "fields/pallas_ops.py:331", "K1 add": "fields/ops.py:205",
                     "K1 sub": "fields/ops.py:209", "K1 neg": "fields/ops.py:213",
-                    "K1 sum": "fields/ops.py:389", "K1 pow": "fields/ops.py:298"}
+                    "K1 sum": "fields/ops.py:389", "K1 pow": "fields/ops.py:298",
+                    "K1 inv": "fields/ops.py:339"}
 SOURCES = {**{k: (fname, "field_ops.cu", "fields/pallas_ops.py:369")
               for k, fname in FIELD_KERNELS.items()},
            "K2": ("joint_ladder", "joint_ladder.cu", "curves/pallas_curve.py:718"),
@@ -242,13 +257,21 @@ COEFF_WAYS = {"fold": {"BPP_PROVER": None, "BPP_PIPPENGER": None},
 COEFF_STAGES = ("bpp::bit_commitment", "bpp::prove_setup", "bpp::fold_round",
                 "bpp::coeff_rows", "bpp::rows_msm", "bpp::final_ab")
 BUCKETS = ("Pip acc", "Pip merge", "Pip reduce")
+# the reduce's segment counts held at the K = 1 L/R row set: the wrapper's
+# own (None: 8 there; the 63 digits 1..63 split 7 to segment 0 and 8 to
+# each other), 1, and 0 (a thread a window), the count at K = 256
+REDUCE_SEGMENTS_HELD = (None, 1, 0)
 # device kernels of a prove by name in a profiler trace (K1's product is
 # the elementwise kernel's op 0)
 PROVE_KERNELS = {"K1": r"elementwise_kernel<\d+, 0>",
-                 "K1 family": r"elementwise_kernel<\d+, [123]>|sum_kernel|pow_kernel",
+                 "K1 family": r"elementwise_kernel<\d+, [123]>|sum_kernel|pow_kernel|inv_kernel",
                  "K2": r"joint_ladder_kernel", "K3": r"sum_points_kernel",
                  "K5": r"(?<![a-z_])ladder_kernel", "Pip acc": r"bucket_accumulate_kernel",
-                 "Pip merge": r"bucket_merge_kernel", "Pip reduce": r"bucket_reduce_kernel"}
+                 "Pip merge": r"bucket_merge_kernel",
+                 # a reduce launch is two kernels: the window sums (on quads,
+                 # or a thread a window), then Horner
+                 "Pip reduce windows": r"bucket_reduce_windows_(lane_)?kernel",
+                 "Pip reduce Horner": r"bucket_reduce_horner_kernel"}
 RENDEZVOUS = os.path.join(ROOT, "bulletproofsplus_tpu_torch", "build", "chip_smoke_rendezvous")
 
 
@@ -543,6 +566,23 @@ def field_holds(held: dict, name: str, f, base, mn: int, gen, device) -> None:
     hold(held, (name, "K1 pow", f"{K} values ^ (p - 2) {mod}"),
          lambda: fk.fe_pow(vals, f.p - 2, spec), lambda: fk.fe_pow_plain(vals, f.p - 2, spec),
          err, 20, graph=True)
+    inv_holds(held, name, f, torch.cat([torch.zeros_like(vals[:1]), vals[1:]]),
+              f"{K} values, one 0")
+
+
+def inv_holds(held: dict, name: str, f, vals, what: str, pow_prefix: int = 4096) -> None:
+    """Hold fe_inv against its plain version on `vals`, word for word, and
+    that against fe_pow_plain(·, p − 2) on the first `pow_prefix` values
+    (0 ↦ 0 in both)."""
+    from bulletproofsplus_tpu_torch.fields import field_kernels as fk
+
+    spec = f.spec
+    ker = hold(held, (name, "K1 inv", f"{what} mod {spec.name}"),
+               lambda: fk.fe_inv(vals, spec), lambda: fk.fe_inv_plain(vals, spec),
+               coord_err(f), 20, graph=True)
+    head = vals[:pow_prefix]
+    if not torch.equal(ker[:pow_prefix], fk.fe_pow_plain(head, f.p - 2, spec)):
+        raise AssertionError(f"{name} fe_inv {what} differs from fe_pow_plain(a, p - 2)")
 
 
 def carry_run_scalars(count: int, gen, device):
@@ -616,7 +656,7 @@ def chain_holds(held: dict, name: str, curve, n: int, m: int, gen, device) -> No
 
 
 def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
-                counted, wrng):
+                counted, wrng, held):
     """Phase 11's proofs: fs256 batch prove and verify of the bench
     statements beside the deterministic verify, the card's replay against
     the host twin, an m = 1 prove and verify; returns (lines, launches,
@@ -644,13 +684,23 @@ def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
         return batch_prove(curve, pk, n, bench, provers_trs, [DeterministicRng(m)] * K_BATCH)
 
     proven, prove_first_ms, prove_launches = counted(
-        run_prove, (*FIELD_KERNELS, "K2", "K3", "K5", "chain"))
-    log(f"fs256 batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}")
+        run_prove, (*PATH_FIELD_KERNELS, "K2", "K3", "K5", "chain"))
+    log(f"fs256 batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}; "
+        f"fe_inv {prove_launches['K1 inv']}, fe_pow {prove_launches['K1 pow']}")
 
     # the card's replay of the whole batch against the host twin on a sample
     sample = sorted({0, 1, K_BATCH // 2, K_BATCH - 1})[:FS256_SAMPLE]
     card = fs256_replay(curve, m, V_bench, proven.A, proven.L_vec, proven.R_vec,
                         proven.A_wip, proven.B)
+    # fe_inv on the Z column the replay inverts (fs256.affine_words), and the
+    # identity's Z (0 on a Weierstrass curve)
+    LR = torch.stack([proven.L_vec, proven.R_vec], dim=2).reshape(K_BATCH, -1, *proven.A.shape[1:])
+    pts = torch.cat([V_bench, proven.A[:, None], LR, proven.A_wip[:, None], proven.B[:, None]],
+                    dim=1)
+    zcol = torch.cat([curve.identity(dev)[None, 2], pts[..., 2, :].reshape(-1, curve.fp.L)])
+    inv_holds(held, name, curve.fp, zcol.contiguous(),
+              f"the K = {K_BATCH} replay's Z column and the identity's, {zcol.shape[0]} values")
+    del LR, pts, zcol
     twins = [Fs256Transcript(m) for _ in sample]
     ys, zs, ess, efs = replay_batch(curve, n, m, twins, proven.take(sample), V_bench[sample])
     want = (ys, zs, [e for es in ess for e in es], efs)
@@ -674,9 +724,10 @@ def fs256_phase(name: str, curve, pk, n: int, m: int, bench, V_bench, det_batch,
                      rng=lambda: wrng.getrandbits(128))
 
     _, verify_first_ms, verify_launches = counted(
-        run_verify, (*FIELD_KERNELS, "K2", "K3", "K4", "chain"))
+        run_verify, (*PATH_FIELD_KERNELS, "K2", "K3", "K4", "chain"))
     log(f"fs256 batch_verify K={K_BATCH} accepted ({verify_first_ms:.1f} ms); "
-        f"launches {verify_launches}")
+        f"launches {verify_launches}; fe_inv {verify_launches['K1 inv']}, "
+        f"fe_pow {verify_launches['K1 pow']}")
     verify_warm, det_warm = [], []
     for turn in range(3):      # in turns: deterministic, fs256, fs256, deterministic, ...
         order = ((det_warm, run_det_verify), (verify_warm, run_verify))
@@ -785,16 +836,16 @@ def facade_phase(counted, helper) -> tuple:
         t = time.time()
         sts = [system.statement([7 * k + 3 * i + 2 for i in range(m)],
                                 gammas=[2 * i + k + 3 for i in range(m)]) for k in range(K)]
-        V = stack_commitments([s.commitments for s in sts])
+        V = stack_commitments(system.curve, [s.commitments for s in sts])
         commit_s = time.time() - t
         proof, prove_ms = once_ms(lambda: system.prove(sts[0]))
         _, verify_ms = once_ms(lambda: system.verify(proof, sts[0].commitments))
         system.verify(system.proof_from_bytes(system.proof_to_bytes(proof)), sts[0].commitments)
         chain = ("chain",) if mode == "fs256" else ()
         batch, bp_ms, bp_launches = counted(lambda: system.batch_prove(sts),
-                                            (*FIELD_KERNELS, "K2", "K3", "K5", *chain))
+                                            (*PATH_FIELD_KERNELS, "K2", "K3", "K5", *chain))
         _, bv_ms, bv_launches = counted(lambda: system.batch_verify(batch, V),
-                                        (*FIELD_KERNELS, "K2", "K3", "K4", *chain))
+                                        (*PATH_FIELD_KERNELS, "K2", "K3", "K4", *chain))
         warm_prove = [once_ms(lambda: system.batch_prove(sts))[1] for _ in range(2)]
         warm_verify = [once_ms(lambda: system.batch_verify(batch, V))[1] for _ in range(2)]
         bad = batch.take(slice(None))
@@ -978,12 +1029,12 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
 
         row = {"batch_prove_ms": prove_ms}
         _, row["unsharded_first_ms"], launches[DIST_CURVE][f"dist_{mode}_verify_unsharded"] = (
-            counted(lambda: run(batch, None), (*FIELD_KERNELS, "K2", "K3", "K4", *chain)))
+            counted(lambda: run(batch, None), (*PATH_FIELD_KERNELS, "K2", "K3", "K4", *chain)))
         for name, mesh in meshes.items():
             per = ("K2", "K3", "K4") if mesh.shape["dp"] == 1 else ("K2", "K3")
             (_, shards), first_ms, counts = counted(
                 lambda: shard_launches(lambda: run(batch, mesh), wrappers),
-                (*FIELD_KERNELS, *per, *chain))
+                (*PATH_FIELD_KERNELS, *per, *chain))
             if (len(shards) != mesh.shape["dp"] * mesh.shape["tp"]
                     or not all(c.get(k) for _, c in shards for k in per)):
                 raise AssertionError(f"{mode} {name}: not every shard launched {per}: {shards}")
@@ -1052,7 +1103,7 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
     ref = prove(curve, pk, n, pr, DeterministicTranscript(m), DeterministicRng(m))
     got, sp_ms, counts = counted(
         lambda: sharded_prove(curve, pk, n, pr, mesh, DeterministicTranscript(m),
-                              DeterministicRng(m)), (*FIELD_KERNELS, "K2", "K3", "K5"))
+                              DeterministicRng(m)), (*PATH_FIELD_KERNELS, "K2", "K3", "K5"))
     one = sharded_prove(curve, pk, n, pr, meshes["1x1"], DeterministicTranscript(m),
                         DeterministicRng(m))
     want = serialize.proof_to_bytes(curve, ref)
@@ -1067,7 +1118,7 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
     ref = prove(curve, pk, n, pr, t_ref, SeededRng(fn.p, 7))
     got, fs_ms, counts = counted(
         lambda: sharded_prove(curve, pk, n, pr, mesh, t_got, SeededRng(fn.p, 7)),
-        (*FIELD_KERNELS, "K2", "K3", "K5", "chain"))
+        (*PATH_FIELD_KERNELS, "K2", "K3", "K5", "chain"))
     if serialize.proof_to_bytes(curve, got) != serialize.proof_to_bytes(curve, ref):
         raise AssertionError("sharded_prove's bytes differ from prove's (fs256)")
     if not (t_ref.state_words() == t_got.state_words()).all() or t_ref._counter != t_got._counter:
@@ -1098,7 +1149,7 @@ def distribution_phase(counted, wrappers, held, bls) -> tuple:
 
     (_, shards), first_ms, counts = counted(
         lambda: shard_launches(lambda: brun(bbatch, mesh), wrappers),
-        (*FIELD_KERNELS, "K2", "K3", "K4"))
+        (*PATH_FIELD_KERNELS, "K2", "K3", "K4"))
     if len(shards) != 4 or not all(c.get(k) for _, c in shards for k in ("K2", "K3", "K4")):
         raise AssertionError(f"bls12-381 1x4: not every shard launched K2, K3, K4: {shards}")
     launches[DIST_BLS]["dist_deterministic_verify_1x4"] = counts
@@ -1218,13 +1269,14 @@ def coeff_rows(curve, pk, n: int, rnd):
     return S, P
 
 
-def bucket_holds(held: dict, name: str, curve, S, P, what: str, nbits: int) -> None:
+def bucket_holds(held: dict, name: str, curve, S, P, what: str, nbits: int,
+                 segments=(None,)) -> None:
     """Hold the three bucket kernels (accumulate, merge, reduce) against their
     plain versions on scalars S (R, N, S) and points P (prow, N, C, L), at
-    the layout bucket_msm takes there; then the whole bucket MSM against the
-    plain stages as affine points. Accumulate and merge add in their plain
-    versions' order (coordinates compared), reduce's sums are compared as
-    affine points."""
+    the layout bucket_msm takes there, word for word (the plain versions add
+    in the kernels' order); the reduce at each of `segments` (None: the
+    wrapper's own count for the card); then the whole bucket MSM against
+    the plain stages as affine points."""
     from bulletproofsplus_tpu_torch import kernels, roofline
     from bulletproofsplus_tpu_torch.curves import cuda_curve as cc
     from bulletproofsplus_tpu_torch.msm.pippenger import window
@@ -1249,11 +1301,17 @@ def bucket_holds(held: dict, name: str, curve, S, P, what: str, nbits: int) -> N
                       graph=True)
     else:
         merged = bk[:, 0]
-    hold(held, (name, "Pip reduce", f"{R} x {nwin} windows ({shape})"),
-         lambda: cc.bucket_reduce(curve, merged, c),
-         lambda: cc.bucket_reduce_plain(curve, merged, c), affine_err(curve), 5, graph=True)
+    own = cc.reduce_segments(R, nwin, c, cc.BUCKET_THREADS * kernels.resident_blocks(
+        "bpp_pippenger_reduce", curve.FAMILY, S.device))
+    for seg in segments:
+        seg = own if seg is None else seg
+        per = f"{seg} segments" if seg else "a thread a window"
+        hold(held, (name, "Pip reduce", f"{R} x {nwin} windows, {per} ({shape})"),
+             lambda: cc.bucket_reduce(curve, merged, c, seg),
+             lambda: cc.bucket_reduce_plain(curve, merged, c, seg), coord_err(curve.fp), 5,
+             graph=True)
     got = cc.bucket_msm(curve, S, P, nbits, c)
-    err = affine_err(curve)(got, cc.bucket_reduce_plain(curve, merged, c))
+    err = affine_err(curve)(got, cc.bucket_reduce_plain(curve, merged, c, own))
     if err:
         raise AssertionError(f"{name} bucket MSM ({what}) disagrees with its plain stages")
     del bk, merged
@@ -1291,7 +1349,7 @@ def coeff_phase(counted, held, kept) -> tuple:
     out, launches = {}, {}
     wrng = random.Random(14)
     rnd = random.Random(1414)
-    path_kernels = (*FIELD_KERNELS, "K2", "K3", "K5")
+    path_kernels = (*PATH_FIELD_KERNELS, "K2", "K3", "K5")
 
     def wire(curve, batch):
         return [serialize.proof_to_bytes(curve, batch[k]) for k in range(batch.A.shape[0])]
@@ -1345,6 +1403,12 @@ def coeff_phase(counted, held, kept) -> tuple:
                 for way, env in COEFF_WAYS.items():
                     with environ(env):
                         turns[way].append(once_ms(run)[1])
+            with environ(COEFF_WAYS["coeff_pippenger"]), roofline.recorded_launches() as calls:
+                run()
+            reduce_calls = [(k, a) for k, a in calls if k.startswith("bpp_pippenger_reduce_")]
+            row["reduce"] = {"launches": [list(a[3:7]) for _, a in reduce_calls],
+                             "bound_ms": roofline.bound(reduce_calls)[0]}
+            log(f"{name} K={K} reduce (R, nwin, c, segments) and bound: {row['reduce']}")
             for way, env in COEFF_WAYS.items():
                 with environ(env):
                     per_stage, whole, _, kern = stage_profile(run, COEFF_STAGES)
@@ -1371,7 +1435,8 @@ def coeff_phase(counted, held, kept) -> tuple:
         # the kernels against their plain versions: one headline L/R row set
         # (20 rows x 1,026 pairs, K = 1) on the key's generators
         S, P = coeff_rows(curve, pk, COEFF_ROWS_N, rnd)
-        bucket_holds(held, name, curve, S, P, "a K = 1 L/R row set", fn.order_bits)
+        bucket_holds(held, name, curve, S, P, "a K = 1 L/R row set", fn.order_bits,
+                     REDUCE_SEGMENTS_HELD)
         if name == COEFF_CURVE:
             # a row with zero scalars and a padded tail: the A row's 2mn + 2 pairs
             A_pts = torch.cat([pk.G_vec, pk.H_vec, pk.g[None], pk.h[None]])[None]
@@ -1534,7 +1599,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
         batch_verify(curve, pk, n, b, V, [DeterministicTranscript(m)] * K_BATCH,
                      rng=lambda: wrng.getrandbits(128))
 
-    _, first_ms, launches = counted(run_batch, (*FIELD_KERNELS, "K2", "K3", "K4"))
+    _, first_ms, launches = counted(run_batch, (*PATH_FIELD_KERNELS, "K2", "K3", "K4"))
     log(f"batch_verify K={K_BATCH} accepted ({first_ms:.1f} ms); launches {launches}")
     warm = [once_ms(run_batch)[1] for _ in range(3)]
     best = min(warm)
@@ -1697,7 +1762,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
                            [DeterministicRng(m)] * K_BATCH)
 
     proven, prove_first_ms, prove_launches = counted(run_prove,
-                                                     (*FIELD_KERNELS, "K2", "K3", "K5"))
+                                                     (*PATH_FIELD_KERNELS, "K2", "K3", "K5"))
     log(f"batch_prove K={K_BATCH} ({prove_first_ms:.1f} ms); launches {prove_launches}")
     prove_warm = [once_ms(run_prove)[1] for _ in range(3)]
     prove_best = min(prove_warm)
@@ -1732,7 +1797,7 @@ def smoke_curve(name: str, seed: int, held: dict, counted):
     sha_holds(held, name, curve, m, gen, dev)
     chain_holds(held, name, curve, n, m, gen, dev)
     fs_lines, fs_launches, fs_stages = fs256_phase(name, curve, pk, n, m, bench, V_bench,
-                                                   proven, counted, wrng)
+                                                   proven, counted, wrng, held)
     stages.update(fs_stages)
 
     lines = [{"batch_verify": {"curve": name, "K": K_BATCH, "n": n, "m": m,
@@ -1803,6 +1868,9 @@ def main() -> int:
         missing = [k for k in needed if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the path: {missing}")
+        if counts["K1 pow"]:
+            raise AssertionError(f"fe_pow launched on a path ({counts['K1 pow']} times): "
+                                 "FieldOps.inv should run fe_inv")
         return out, ms, counts
 
     # held[(curve, kernel, shape)] =

@@ -158,6 +158,31 @@ def test_field_kernels_on_carry_runs(dev, c, which):
     assert f.decode(f.inv(m)) == [pow(v, -1, f.p) for v in nonzero]
 
 
+@pytest.mark.parametrize("which", ["fp", "fn"])
+def test_fe_inv_kernel_matches_plain(dev, c, which):
+    """The divstep inversion on the card: 0, 1, p − 1, powers of two and
+    carry runs, then 256 random values, each equal word for word to its
+    plain version and to fe_pow_plain(a, p − 2) (0 ↦ 0), one launch a call;
+    FieldOps.inv launches it once."""
+    f = getattr(c, which)
+    spec, p = f.spec, f.p
+    rnd = random.Random(31)
+    vals = ([0, 1, 2, p - 1, p - 2] + [1 << k for k in range(0, p.bit_length() - 1, 9)]
+            + carry_runs(p, f.L, 40, 13))
+    for xs in (vals, [rnd.randrange(p) for _ in range(256)]):
+        a = f.encode(xs, dev)
+        before = fk.fe_inv.launches
+        got = fk.fe_inv(a, spec)
+        assert fk.fe_inv.launches == before + 1
+        want = fk.fe_inv_plain(a.cpu(), spec)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(want, fk.fe_pow_plain(a.cpu(), p - 2, spec))
+        assert f.decode(got) == [pow(x, -1, p) if x else 0 for x in xs]
+    before, pows = fk.fe_inv.launches, fk.fe_pow.launches
+    f.inv(a)
+    assert (fk.fe_inv.launches, fk.fe_pow.launches) == (before + 1, pows)
+
+
 @pytest.mark.parametrize("jway", [2, 4])
 def test_k2_kernel_on_carry_runs(dev, c, jway):
     """Coordinates drawn from carry runs (off the curve: the kernel and its
@@ -460,7 +485,7 @@ def test_fs256_prove_and_verify_on_card(dev, c):
     before, sha = hd.fs256_chain.launches, hd.sha256_words.launches
     batch = bt.batch_prove(c, pk, n, provers, trs)
     assert hd.fs256_chain.launches == before + 1 + (n * m).bit_length()   # y/z, rounds, final
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     twins = [bt.Fs256Transcript(m) for _ in range(K)]
     ys, zs, ess, efs = replay_batch(c, n, m, twins, batch, V)
     y, z, es, ef = fs256_replay(c, m, V, batch.A, batch.L_vec, batch.R_vec, batch.A_wip,
@@ -484,9 +509,12 @@ def test_fs256_prove_and_verify_on_card(dev, c):
     (3, 37, 3, 6, 1), (4, 50, 2, 6, 4), (2, 9, 1, 4, 3), (1, 200, 1, 8, 14)])
 def test_bucket_kernels_match_plain(dev, c, R, N, prow, window, slices):
     """Accumulate, merge and reduce against their plain versions word for
-    word (the same add order), with zero scalars, P + P and the identity in
-    a bucket, rows sharing their points and a short last slice; the whole
-    bucket MSM against the joint ladder as affine points."""
+    word (the same add order; the reduce at a thread a window and at 1,
+    2, 4 and 8 segments a window, none of which divides 2^c − 1), with
+    zero scalars, P + P and
+    the identity in a bucket, rows sharing their points and a short last
+    slice; the whole bucket MSM against the joint ladder as affine
+    points."""
     rnd = random.Random(R * 1000 + N)
     fn = c.fn
     P = points(c, prow * N, N, dev).reshape(prow, N, c.COORDS, c.fp.L)
@@ -504,10 +532,11 @@ def test_bucket_kernels_match_plain(dev, c, R, N, prow, window, slices):
     merged = cc.bucket_merge(c, bk) if slices > 1 else bk[:, 0]
     if slices > 1:
         assert torch.equal(merged, cc.bucket_merge_plain(c, bk))
-    out = cc.bucket_reduce(c, merged, window)
-    assert torch.equal(out, cc.bucket_reduce_plain(c, merged, window))
+    for seg in (0, 1, 2, 4, 8):
+        out = cc.bucket_reduce(c, merged, window, seg)
+        assert torch.equal(out, cc.bucket_reduce_plain(c, merged, window, seg))
     assert [f.launches for f in (cc.bucket_accumulate, cc.bucket_merge, cc.bucket_reduce)] == [
-        before[0] + 1, before[1] + (slices > 1), before[2] + 1]
+        before[0] + 1, before[1] + (slices > 1), before[2] + 5]
     want = msm(c, S, P.repeat(R // prow, 1, 1, 1), nbits)
     assert c.decode_points(out) == c.decode_points(want)
     assert c.decode_points(cc.bucket_msm(c, S, P, nbits, window)) == c.decode_points(want)

@@ -319,7 +319,7 @@ def test_fs256_prove_matches_golden_under_the_jax_twin(name, m):
     for t, twin in zip(trs, twins):
         assert np.array_equal(t.state_words(), twin.state_words())
         assert t._counter == twin._counter == logn + 3
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     bt.batch_verify(c, pk, N, batch, V)
     bad = batch.take(slice(None))
     bad.r_prime = bad.r_prime.clone()
@@ -354,7 +354,7 @@ def test_fs256_replay_matches_jax_and_host_twins():
     c, jc = bt.curve_ops(name), jax_curve_ops(name)
     fn = c.fn
     _, provers, batch, _, _ = proven(name, m)
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     y, z, es, ef = fs256.fs256_replay(c, m, V, batch.A, batch.L_vec, batch.R_vec,
                                       batch.A_wip, batch.B)
     got = (fn.decode(y), fn.decode(z), fn.decode(es), fn.decode(ef))
@@ -419,7 +419,7 @@ def test_verify_defaults_to_the_device_replay(monkeypatch):
     name, m = "edwards25519", 2
     c = bt.curve_ops(name)
     pk, provers, batch, _, _ = proven(name, m)
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     calls = []
     real = batch_mod.fs256_replay
     monkeypatch.setattr(batch_mod, "fs256_replay",

@@ -161,7 +161,7 @@ def mixed():
         provers.append(p)
     trs = [bt.Fs256Transcript(1, CUSTOM), bt.Fs256Transcript(1)]
     batch = bt.batch_prove(c, pk, N, provers, trs, [bt.DeterministicRng(1)] * 2)
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     return pk, V, batch
 
 

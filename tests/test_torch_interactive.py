@@ -335,7 +335,7 @@ def test_interactive_proofs_verify(name, m):
     c = bt.curve_ops(name)
     provers, batch, _, _ = proven(name, m)
     pk = key(name, m)
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     bt.batch_verify(c, pk, N, batch, V, sha_merlin(m))
     bad = batch.take(slice(None))
     bad.r_prime = bad.r_prime.clone()
@@ -381,5 +381,5 @@ def test_mixed_fs256_sha_batch_with_a_shared_rng(monkeypatch):
     assert [serialize.proof_to_bytes(c, batch[k]) for k in range(K)] == want
     assert trs[0]._state == twins[0]._state
     assert trs[0]._counter == twins[0]._counter == logn + 3
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     bt.batch_verify(c, key(name, m), N, batch, V, [bt.Fs256Transcript(m), bt.ShaTranscript(m)])

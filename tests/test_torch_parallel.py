@@ -116,7 +116,7 @@ def test_global_mesh_keeps_rows_in_their_process(monkeypatch):
     g = global_mesh(devices=[CPU] * 4)
     assert g.shape == {"dp": 1, "tp": 4} and (g.row0, g.world) == (0, 1)
     warmup_collectives(g)
-    distributed_barrier()
+    distributed_barrier("test")
     assert global_mesh(dp=2, devices=[CPU] * 4).shape == {"dp": 2, "tp": 2}
     monkeypatch.setattr(mesh_mod, "_world", lambda: (2, 1))
     g = global_mesh(devices=[CPU] * 2)

@@ -186,6 +186,55 @@ def test_slices_merge_and_padded_tail(name):
                                  cc.bucket_reduce)] == before
 
 
+@pytest.mark.parametrize("window", [4, 6, 8])
+@pytest.mark.parametrize("name", ["edwards25519", "secp256k1"])
+def test_reduce_segments_match_msm_and_golden(name, window):
+    """The reduce's plain version in the kernel's order (segments of the
+    digits s + segments·j, a suffix scan, doublings, a butterfly, then
+    Horner) at 1, 2, 4 and 8 segments a window (1 and 8 at c = 8), none of
+    which divides the 2^c − 1 digits, against golden, and at c = 6 the port's msm: row 0's
+    scalars share one digit in window 0 (a single nonzero bucket) and have
+    a zero middle window (every bucket the identity); row 1's are random.
+    The wrapper on the CPU takes the most segments."""
+    c, _, gc = triple(name)
+    nwin, N = 3, 5
+    nbits = nwin * window
+    rng = np.random.default_rng(window)
+    d0 = int(rng.integers(1, 1 << window))
+    ss = [[d0 | (int(rng.integers(0, 1 << window)) << (2 * window)) for _ in range(N)],
+          [int(rng.integers(0, 1 << nbits)) for _ in range(N)]]
+    pts = [gc.mul(gc.base(), 5 + 7 * i) for i in range(N)]
+    S, P = port_pair(c, ss, pts)
+    merged = cc.bucket_accumulate_plain(c, S, P[None], nwin, window, 1)[:, 0]
+    assert bool(c.is_identity(merged[0, 1]).all())
+    assert int((~c.is_identity(merged[0, 0])).sum()) == 1
+    want = [golden_sum(gc, row, pts) for row in ss]
+    if window == 6:
+        assert c.decode_points(msm(c, S, P.expand(2, *P.shape), nbits)) == want
+    for seg in ((1, 2, 4, 8) if window < 8 else (1, 8)):      # c = 8: 255 steps at 1
+        assert c.decode_points(cc.bucket_reduce_plain(c, merged, window, seg)) == want
+    assert cc.reduce_segments(2, nwin, window) == 8
+    assert torch.equal(cc.bucket_reduce(c, merged, window),
+                       cc.bucket_reduce_plain(c, merged, window, 8))
+
+
+def test_reduce_segments_fill_the_card():
+    """Segments a window: the most (8, at most 2^c) whose quads the card's
+    resident threads hold, 0 (a thread a window) where even one quad a
+    window is more."""
+    # the coefficient prover's L/R rows at n·m = 1,024, c = 6: K = 1 and 256
+    assert cc.reduce_segments(20, 43, 6, 65536) == 8
+    assert cc.reduce_segments(5120, 43, 6, 65536) == 0
+    assert cc.reduce_segments(320, 43, 6, 65536) == 1
+    assert cc.reduce_segments(381, 43, 6, 65536) == 1
+    assert cc.reduce_segments(382, 43, 6, 65536) == 0
+    assert cc.reduce_segments(80, 43, 6, 65536) == 4
+    assert cc.reduce_segments(1, 43, 2, 65536) == 4
+    assert cc.reduce_segments(1, 43, 1) == 2
+    with pytest.raises(ValueError):
+        cc.bucket_reduce_plain(triple("edwards25519")[0], torch.zeros(1, 1, 4, 4, 8), 2, 8)
+
+
 def test_bls12_381_matches_golden():
     c, _, gc = triple("bls12_381")
     ss, pts = inputs(gc, 2, 12, 23)

@@ -270,7 +270,7 @@ def test_batch_prove_matches_golden(env, proven):
 def test_batch_verify_accepts_proven_batch(env, proven):
     c = env[0]
     m, pk, provers, batch, _, _ = proven
-    V = bt.stack_commitments([p.commitment_vec for p in provers])
+    V = bt.stack_commitments(c, [p.commitment_vec for p in provers])
     trs = [bt.DeterministicTranscript(m)] * K
     bt.batch_verify(c, pk, N, batch, V, trs)
     bad = batch.take(slice(None))
